@@ -1,0 +1,183 @@
+"""K2's plain twin (imsim_tpu_torch.ops.raychain.field_to_sensor on CPU
+tensors) against the JAX package's XLA chain
+(_field_to_sensor_xla + depth_diffusion_displace) on the same photons,
+the same diffraction normal and the same silicon draws, to the bar of
+tests/test_optics.py::test_raychain_pallas_matches_xla."""
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from imsim_tpu.electronics.camera import get_camera
+from imsim_tpu.optics.wcs_factory import make_wcs_factory
+from imsim_tpu.photons.optics_ops import (_field_to_sensor_xla,
+                                          make_optics_context)
+from imsim_tpu.sensor.silicon import SiliconParams as JSilicon
+from imsim_tpu.sensor.silicon import depth_diffusion_displace as j_ddd
+from imsim_tpu.sensor.silicon import absorption_length_poly as j_labs
+from imsim_tpu.sensor.treerings import TreeRings
+from imsim_tpu_torch import convert as CV
+from imsim_tpu_torch.ops import raychain
+
+torch.set_num_threads(1)
+
+DEG = np.pi / 180
+N = 1 << 14
+
+
+@pytest.fixture(scope="module")
+def chain_inputs():
+    cam = get_camera()
+    fac = make_wcs_factory(30 * DEG, -20 * DEG, mjd=60674.2, band="r")
+    octx = make_optics_context(fac, cam["R22_S11"])
+    tel = fac.telescope.for_detector("R22_S11")
+    rng = np.random.default_rng(11)
+    r = np.sqrt(rng.uniform(2.558**2, 4.18**2, N))
+    a = rng.uniform(0, 2 * np.pi, N)
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+    # field angles over R22_S11 (the focal-plane centre) and its rim
+    args = [f32(rng.uniform(-0.0025, 0.0025, N)),
+            f32(rng.uniform(-0.0025, 0.0025, N)),
+            f32(r * np.cos(a)), f32(r * np.sin(a)),
+            f32(rng.uniform(552, 691, N)), f32(rng.uniform(0, 30, N)),
+            np.ones(N, np.float32)]
+    key = jax.random.PRNGKey(5)
+    # the normal the XLA chain draws inside apply_diffraction
+    normal = np.array(jax.random.normal(key, (N,)))
+    draws = [f32(rng.uniform(1e-7, 1, N)), f32(rng.normal(0, 1, N)),
+             f32(rng.normal(0, 1, N))]
+    sil = JSilicon.make(treering_model=TreeRings().get("R22_S11"))
+    return dict(tel=tel, octx=octx, args=args, key=key, normal=normal,
+                draws=draws, sil=sil)
+
+
+def _port(s, silicon=False):
+    T = [torch.as_tensor(a) for a in s["args"]]
+    kw = {}
+    if silicon:
+        kw = dict(silicon=CV.silicon_from_numpy(s["sil"], "cpu"),
+                  si_draws=[torch.as_tensor(d) for d in s["draws"]])
+    out = raychain.field_to_sensor(
+        CV.telescope_from_numpy(s["tel"]),
+        CV.optics_context_from_numpy(s["octx"]), *T,
+        torch.as_tensor(s["normal"]), **kw)
+    return [o.numpy() for o in out]
+
+
+def _gaps(s, ref, out):
+    """raychain.chain_gaps on numpy outputs (the bar and its reasons
+    are documented there)."""
+    T = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+    a = s["args"]
+    return raychain.chain_gaps(
+        [T(v) for v in ref], [T(v) for v in out],
+        CV.optics_context_from_numpy(s["octx"]), T(a[2]), T(a[3]),
+        T(a[4]), T(a[5]), T(s["normal"]))
+
+
+def test_field_to_sensor_plain_matches_xla(chain_inputs):
+    s = chain_inputs
+    ref = [np.asarray(v) for v in _field_to_sensor_xla(
+        s["key"], s["tel"], s["octx"], *map(jnp.asarray, s["args"]))]
+    out = _port(s)
+    gaps = _gaps(s, ref, out)
+    assert gaps["landed"] > 0.85
+    assert raychain.gaps_ok(gaps, fused=False), gaps
+
+
+def test_field_to_sensor_fused_silicon_matches_xla(chain_inputs):
+    s = chain_inputs
+    rx, ry, rdx, rdy, rf = _field_to_sensor_xla(
+        s["key"], s["tel"], s["octx"], *map(jnp.asarray, s["args"]))
+    sil = s["sil"]
+    rx, ry, rf = j_ddd(*map(jnp.asarray, s["draws"]), rx, ry, rdx, rdy, rf,
+                       j_labs(jnp.asarray(s["args"][4])),
+                       float(sil.thickness_um), float(sil.pixel_um),
+                       float(sil.diffusion_um))
+    out = _port(s, silicon=True)
+    assert len(out) == 3
+    gaps = _gaps(s, (rx, ry, rf), out)
+    assert gaps["landed"] > 0.85
+    assert raychain.gaps_ok(gaps, fused=True), gaps
+
+
+def test_chain_gaps_separates_spider_edge_photons():
+    """chain_gaps holds photons near a spider edge to a kick-relative
+    bar and every other photon to 0.35 px."""
+    from imsim_tpu_torch.convert import load_ccd_state
+
+    ctx = load_ccd_state().ctx
+    n = 4
+    # photon 0 sits 0.1 mm outside the edge of the vane at +0.4 m
+    on_vane = (0.4 + 0.025 + 1e-4) / 2 ** 0.5
+    pu = torch.tensor([on_vane, 3.0, 3.0, 3.0])
+    pv = torch.tensor([on_vane, 0.5, 0.5, 0.5])
+    base = [torch.full((n,), 2000.0), torch.full((n,), 2000.0),
+            torch.ones(n)]
+    moved = [base[0] + torch.tensor([30.0, 0.2, 0.0, 0.0]), base[1],
+             base[2]]
+    g = raychain.chain_gaps(base, moved, ctx, pu, pv, torch.full((n,), 620.0),
+                            torch.zeros(n), torch.ones(n),
+                            field_rotation=False)
+    assert g["n_near_edge"] == 1 and abs(g["dxy"] - 0.2) < 1e-3
+    assert g["near_edge_excess"] < 0.35
+    assert raychain.gaps_ok(g, fused=True) is False   # n_on <= 1000
+
+
+def test_chain_params_layout_matches_cuda_source():
+    """The ctypes mirror of `struct ChainParams` lists the C fields in
+    the same order with the same element counts (the card checks the
+    total size against the library; this catches a reorder here)."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(raychain.__file__), "..",
+                            "csrc", "raychain.cu")).read()
+    body = re.search(r"struct ChainParams \{(.*?)\};", src, re.S).group(1)
+    consts = dict(kMaxSurf=raychain.MAX_SURF, kSurfW=raychain.SURF_W,
+                  kNAbs=raychain.N_ABS)
+    c_fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        ctype, names = decl.split(None, 1)
+        for nm in names.split(","):
+            m = re.match(r"(\w+)(?:\[(.+)\])?", nm.strip())
+            count = 1
+            if m.group(2):
+                count = eval(m.group(2), {}, consts)
+            c_fields.append((m.group(1), ctype, count))
+    py_fields = []
+    for nm, t in raychain.ChainParams._fields_:
+        count = getattr(t, "_length_", 1)
+        base = t._type_ if hasattr(t, "_length_") else t
+        py_fields.append((nm, "float" if base is ctypes.c_float else "int",
+                          count))
+    assert c_fields == py_fields
+    assert ctypes.sizeof(raychain.ChainParams) == 4 * sum(
+        c for _, _, c in c_fields)
+
+
+def test_chain_params_pack_the_visit(chain_inputs):
+    """chain_params packs the surface matrix, kinds and Newton steps of
+    every surface and the folded weather factors."""
+    s = chain_inputs
+    tel = CV.telescope_from_numpy(s["tel"])
+    ctx = CV.optics_context_from_numpy(s["octx"])
+    sil = CV.silicon_from_numpy(s["sil"], "cpu")
+    p = raychain.chain_params(tel, ctx, True, True, True, sil)
+    S = len(tel.kinds)
+    surf = np.frombuffer(p.surf, np.float32).reshape(raychain.MAX_SURF, -1)
+    assert (surf[:S] == tel.surf).all() and not surf[S:].any()
+    assert list(p.kinds[:S]) == list(tel.kinds)
+    assert list(p.newton[:S]) == [tel.newton_steps(i) for i in range(S)]
+    # M1-M3 carry aspheric terms: 1 polish step + 2
+    assert list(p.newton[:3]) == [3, 3, 3] and p.newton[3] == 1
+    assert p.fused == 1 and p.n_surf == S
+    t_c = ctx.temperature_k - 273.15
+    assert np.isclose(p.air_f3, 1.0 + 0.003661 * t_c)
