@@ -14,7 +14,11 @@ ok line is never printed):
      6 batches, pair 4, share 4), with CUDA-event times;
   4. the slice: render_ccd_pooled on that workload, cold and warm, with
      launch counts, peak memory, charge accounting and landed fraction;
-  5. the kernel report (JSON) and, last, the ok line.
+  5. the probes: the three on-chip probe paths at their own sizes
+     (imsim_tpu_torch.benchmarks.probe_rows at 24 x 16,777,216,
+     probe_pallas and probe_pallas2 on 4096^2 frames with k = 9), each
+     of K4 and P1-P7 held against its plain twin, with launch counts;
+  6. the kernel report (JSON, all eleven kernels) and, last, the ok line.
 
 The script needs CUDA and refuses to run without it.  `run()` takes a
 device and a size so the CPU tests can rehearse the same phases at a
@@ -51,38 +55,6 @@ def _import_port():
         raise RuntimeError(f"imsim_tpu_torch imported from {pkg}, not from "
                            f"this checkout")
     return imsim_tpu_torch
-
-
-class Timer:
-    """Warm per-call milliseconds: CUDA events on the card, the host
-    clock on the CPU (rehearsal only; not a device time)."""
-
-    def __init__(self, device):
-        import torch
-
-        self.torch = torch
-        self.cuda = device.type == "cuda"
-
-    def sync(self):
-        if self.cuda:
-            self.torch.cuda.synchronize()
-
-    def ms(self, fn, reps=3):
-        fn()
-        self.sync()
-        if not self.cuda:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            return (time.perf_counter() - t0) * 1e3 / reps
-        e0 = self.torch.cuda.Event(enable_timing=True)
-        e1 = self.torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        self.torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
 
 
 def workload(device, small: bool):
@@ -149,6 +121,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     import numpy as np
     import torch
 
+    from imsim_tpu_torch.benchmarks._util import Timer
     from imsim_tpu_torch.image import photon_pooling as PP
     from imsim_tpu_torch.ops import raychain, scanrows, stencil
     from imsim_tpu_torch.sensor.silicon import bf_taps
@@ -247,6 +220,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     img = torch.rand((cfg.ysize, cfg.xsize), generator=gen,
                      device=device) * 1e5
     dkx, dky = bf_taps(state.silicon)
+    hx, hy = dkx.cpu(), dky.cpu()
     ox, oy = stencil.stencil_pair(img, dkx, dky)
     px_, py_ = stencil.stencil_pair_plain(img, dkx, dky)
     scale = max(float(px_.abs().max()), float(py_.abs().max()))
@@ -259,9 +233,11 @@ def phase_kernels(device, state, host, cfg, ctx):
         name="stencil_pair", route="cuda",
         source="imsim_tpu_torch/csrc/stencil.cu",
         replaces="imsim_tpu/ops/stencil.py:70", max_abs_err=err,
-        ms=timer.ms(lambda: stencil.stencil_pair(img, dkx, dky)),
-        plain_ms=timer.ms(lambda: stencil.stencil_pair_plain(img, dkx,
-                                                             dky))))
+        # both timed with the taps on the host: taps on the card make
+        # every call wait for a copy back, and the events see that wait
+        ms=timer.ms(lambda: stencil.stencil_pair(img, hx, hy)),
+        plain_ms=timer.ms(lambda: stencil.stencil_pair_plain(img, hx,
+                                                             hy))))
     for row in rows:
         log(f"[kernels] {row['name']}: {row['ms']:.3f} ms "
             f"(plain twin {row['plain_ms']:.3f} ms)")
@@ -272,6 +248,7 @@ def phase_slice(device, state, host, cfg, ctx, nb):
     """render_ccd_pooled cold then warm; launch counts from each run."""
     import torch
 
+    from imsim_tpu_torch.benchmarks._util import Timer
     from imsim_tpu_torch.image.photon_pooling import render_ccd_pooled
     from imsim_tpu_torch.ops import _build
     from imsim_tpu_torch.psf.atmosphere import make_screens
@@ -281,8 +258,9 @@ def phase_slice(device, state, host, cfg, ctx, nb):
     screens = make_screens(state.screen_spec, device,
                            gen=stream(42 + ATM_SEED_OFFSET, "screens",
                                       device=device))
-    expect = dict(scan_slot_prefix=nb, field_to_sensor=nb,
-                  stencil_pair=nb * cfg.nsub)
+    # the render launches K1-K3 and none of the probes' kernels
+    expect = dict({k: 0 for k in _build.LAUNCHES}, scan_slot_prefix=nb,
+                  field_to_sensor=nb, stencil_pair=nb * cfg.nsub)
     result = {}
     for label in ("cold", "warm"):
         tally = {}
@@ -325,8 +303,90 @@ def phase_slice(device, state, host, cfg, ctx, nb):
     return result
 
 
+# the probes' kernels: report name, CUDA source, TPU kernel replaced
+PROBE_KERNELS = (
+    ("scan_lanes", "imsim_tpu_torch/csrc/scanrows.cu",
+     "imsim_tpu/ops/scanrows.py:104"),
+    ("probe_p1", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas.py:51"),
+    ("probe_p2", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas.py:76"),
+    ("probe_p3", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas.py:102"),
+    ("probe_p4", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas.py:136"),
+    ("probe_p5", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas.py:175"),
+    ("probe_mk", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas2.py:45"),
+    ("probe_mk2", "imsim_tpu_torch/csrc/probes.cu",
+     "benchmarks/probe_pallas2.py:157"),
+)
+
+
+def phase_probes(device, small: bool):
+    """The three probe paths, counts set to 0 just before and read just
+    after.  Each probe holds its kernels against their plain twins (K4:
+    sqrt(n_obj) ulps of each row's scale; P1-P3 and the one-tap bodies
+    exact; the stencils 1e-5 of max |out|); the bars are checked here.
+    Returns the report rows of K4 and P1-P7."""
+    from imsim_tpu_torch.benchmarks import (probe_pallas, probe_pallas2,
+                                            probe_rows)
+    from imsim_tpu_torch.benchmarks._util import Timer
+    from imsim_tpu_torch.ops import _build
+
+    def plog(line):
+        log(f"[probes] {line}")
+
+    rows_kw = dict(n=65_536, n_obj=512) if small else {}
+    frame_kw = dict(h=256, w=256) if small else {}
+    timer = Timer(device)
+    timer.sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rep_rows = probe_rows.main(device, log=plog, **rows_kw)
+    rep_p = probe_pallas.main(device, log=plog, **frame_kw)
+    rep_p2 = probe_pallas2.main(device, log=plog, **frame_kw)
+    timer.sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[probes] {wall:.1f} s wall, launches {launches}")
+    names = [name for name, _, _ in PROBE_KERNELS]
+    if timer.cuda:
+        idle = [k for k in names if launches[k] == 0]
+        if idle or launches["field_to_sensor"] or launches["stencil_pair"]:
+            raise AssertionError(f"probe launch counts {launches}: "
+                                 f"{idle} never launched")
+    elif any(launches.values()):
+        raise AssertionError(f"CPU run launched kernels: {launches}")
+    found = {**rep_rows["kernels"], **rep_p["kernels"], **rep_p2["kernels"]}
+    bad = {k: found[k]["within"] for k in names
+           if not found[k]["within"] <= 1.0}
+    if bad:
+        raise AssertionError(f"kernels past their bar (gap / bar): {bad}")
+    rows = rep_rows["rows"]
+    xla = rep_p["p5_vs_shifted_slices"]
+    # a wrong scatter or layout moves rows by O(1); f32 rounding of the
+    # prefix sum stays near sqrt(n_obj) ulps of the parameters' scale
+    if not rows["max_abs_err"] <= 1e-3 * rows["scale"]:
+        raise AssertionError(f"K4 rows vs the direct gather: {rows}")
+    if not xla["max_abs_err"] <= 1e-5 * xla["scale"]:
+        raise AssertionError(f"P5 vs the shifted-slice sum: {xla}")
+    report = []
+    for name, source, replaces in PROBE_KERNELS:
+        r = found[name]
+        report.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"]))
+        log(f"[kernels] {name}: {r['ms']:.3f} ms (plain twin "
+            f"{r['plain_ms']:.3f} ms)"
+            + (f", slowest body {r['slowest']}" if "slowest" in r else ""))
+    return report
+
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-4 on `device`; returns the kernel report."""
+    """Phases 2-5 on `device`; returns the kernel report."""
     import torch
 
     _import_port()
@@ -338,6 +398,7 @@ def run(device, small: bool = False) -> dict:
     res = phase_slice(device, state, host, cfg, ctx, nb)
     for row in rows:
         row["launches"] = res["launches"][row["name"]]
+    rows += phase_probes(device, small)
     return {"kernels": rows}
 
 

@@ -1,17 +1,24 @@
-// K1: ordinal-order prefix sum of slot-layout deltas.
+// K1: ordinal-order prefix sum of slot-layout deltas, and K4: the plain
+// lane prefix sum, which is K1 with one plane (pe = 1).
 //
-// Replaces imsim_tpu/ops/scanrows.py::scan_slot_prefix (Pallas
+// K1 replaces imsim_tpu/ops/scanrows.py::scan_slot_prefix (Pallas
 // _kernel_slot_mxu, a triangular-matmul scan on the TPU's matrix unit).
+// K4 replaces imsim_tpu/ops/scanrows.py::scan_lanes (Pallas _kernel, a
+// sequential grid carrying the running row total in VMEM).
 //
 // Input d (C, pe, mp) float32: plane beta, column q holds the delta of
 // photon ordinal j = pe*q + mu(beta).  Output out[c, beta, q] = sum of d
 // over all slots with ordinal <= that of (beta, q).  Column q therefore
 // holds pe consecutive ordinals, and the ordinal sequence is: columns in
-// q order, and within a column the planes in mu order.
+// q order, and within a column the planes in mu order.  With pe = 1 this
+// is the inclusive prefix sum of each row of a (C, N) matrix.
 //
 // Bound on the H100: memory.  About 3 flops per element against 4 B read
-// three times and 4 B written once (production: C = 24, pe = 16,
-// mp ~ 1.04M, 1.6 GB per pass).  Design, simple and right first:
+// twice and 4 B written once (K1 production: C = 24, pe = 16,
+// mp ~ 1.04M, 1.6 GB per pass; K4 probe: C = 24, N = 16,777,216, also
+// 1.6 GB, so one read and one write take >= 0.96 ms at 3.35 TB/s).
+// The card has no ordered grid, so nothing carries between blocks.
+// Design, simple and right first:
 //   (a) tile_sum: each block sums its tile of kTile columns over all
 //       planes, for one c (blockIdx.y);
 //   (b) carry_scan: one block per c turns the tile totals into exclusive
@@ -134,21 +141,9 @@ tile_scan_kernel(const float* __restrict__ d, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-IMSIM_API int imsim_scan_tile_columns() { return kTile; }
-
-IMSIM_API int imsim_scan_slot_prefix(const float* d, float* out,
-                                     float* scratch, int C, int pe,
-                                     long long mp, const int* mu_to_beta,
-                                     void* stream) {
-  if (C <= 0 || mp <= 0) return 0;
-  if (pe <= 0 || pe > kMaxPe || C > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MuOrder ord;
-  for (int m = 0; m < kMaxPe; ++m) ord.beta[m] = m < pe ? mu_to_beta[m] : 0;
+// The three passes over d (C, pe, mp) with the planes' mu order.
+int scan_passes(const float* d, float* out, float* scratch, int C, int pe,
+                long long mp, const MuOrder& ord, cudaStream_t s) {
   const long long nt = (mp + kTile - 1) / kTile;
   if (nt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = static_cast<int>(nt);
@@ -162,6 +157,35 @@ IMSIM_API int imsim_scan_slot_prefix(const float* d, float* out,
   tile_scan_kernel<<<grid, kThreads, 0, s>>>(d, out, scratch, pe, mp,
                                              ntiles, ord);
   return imsim_last_error();
+}
+
+}  // namespace
+
+IMSIM_API int imsim_scan_tile_columns() { return kTile; }
+
+IMSIM_API int imsim_scan_slot_prefix(const float* d, float* out,
+                                     float* scratch, int C, int pe,
+                                     long long mp, const int* mu_to_beta,
+                                     void* stream) {
+  if (C <= 0 || mp <= 0) return 0;
+  if (pe <= 0 || pe > kMaxPe || C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MuOrder ord;
+  for (int m = 0; m < kMaxPe; ++m) ord.beta[m] = m < pe ? mu_to_beta[m] : 0;
+  return scan_passes(d, out, scratch, C, pe, mp, ord,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K4: inclusive prefix sum along axis 1 of x (C, N); scratch holds
+// C * ceil(N / kTile) floats.
+IMSIM_API int imsim_scan_lanes(const float* x, float* out, float* scratch,
+                               int C, long long N, void* stream) {
+  if (C <= 0 || N <= 0) return 0;
+  if (C > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  MuOrder ord = {};
+  return scan_passes(x, out, scratch, C, 1, N, ord,
+                     static_cast<cudaStream_t>(stream));
 }
 
 IMSIM_API const char* imsim_error_string(int code) {

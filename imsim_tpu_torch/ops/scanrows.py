@@ -1,5 +1,7 @@
 """K1: ordinal-order prefix sum of slot-layout deltas
-(replaces imsim_tpu/ops/scanrows.py::scan_slot_prefix).
+(replaces imsim_tpu/ops/scanrows.py::scan_slot_prefix), and K4: the
+lane prefix sum of a (C, N) matrix (replaces imsim_tpu/ops/scanrows.py::
+scan_lanes, which only benchmarks/probe_rows.py calls).
 
 The pooled row materialization scatters each object's parameter delta
 into the two-level slot layout d (C, pe, mp): plane beta, lane q holds
@@ -7,6 +9,8 @@ photon ordinal j = pe*q + mu(beta) (photon_pooling.member_offsets).  The
 per-photon rows are the prefix sum of d in ORDINAL order.  The CUDA
 kernel (csrc/scanrows.cu) walks that order directly; the plain twin
 permutes planes into ordinal order, runs one cumsum and permutes back.
+K4 is the same CUDA kernel with one plane; its plain twin is
+torch.cumsum along axis 1.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from . import _build
 # lanes per scan block of the JAX kernel's tiling; kept so align_batch
 # and pooled_plan size batches exactly as the JAX package does
 _SLOT_LANES = 32_768
+# lanes per grid step of the JAX scan_lanes; kept as its input contract
+# (N % block == 0) so both packages accept the same inputs
+_LANE_BLOCK = 16_384
 
 
 def slot_blkq(pe: int) -> int:
@@ -75,8 +82,7 @@ def scan_slot_prefix_cuda(d: torch.Tensor, pair: int,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(d)
-    ntiles = max(1, -(-mp // lib.imsim_scan_tile_columns()))
-    scratch = torch.empty((C, ntiles), dtype=torch.float32, device=d.device)
+    scratch = _scan_scratch(C, mp, d.device)
     order = np.asarray(beta_order(pair, share), np.int32)
     status = fn(d.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, pe,
                 mp, order.ctypes.data, _build.stream_ptr(d))
@@ -97,3 +103,48 @@ def scan_slot_prefix(d: torch.Tensor, pair: int, share: int) -> torch.Tensor:
     if d.device.type != "cpu":
         raise ValueError(f"scan_slot_prefix: unsupported device {d.device}")
     return scan_slot_prefix_plain(d, pair, share)
+
+
+def _scan_scratch(C: int, N: int, device) -> torch.Tensor:
+    """Per-tile totals of the three-pass scan: (C, ceil(N / tile))."""
+    ntiles = max(1, -(-N // _build.library().imsim_scan_tile_columns()))
+    return torch.empty((C, ntiles), dtype=torch.float32, device=device)
+
+
+def scan_lanes_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain twin: torch.cumsum along axis 1."""
+    return torch.cumsum(x, dim=1)
+
+
+def scan_lanes_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on x (C, N) float32 (any N)."""
+    _build.require(x, "x")
+    C, N = x.shape
+    fn = _build.library().imsim_scan_lanes
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    scratch = _scan_scratch(C, N, x.device)
+    status = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, N,
+                _build.stream_ptr(x))
+    _build.check(status, "scan_lanes")
+    _build.count_launch("scan_lanes")
+    return out
+
+
+def scan_lanes(x: torch.Tensor, block: int = _LANE_BLOCK) -> torch.Tensor:
+    """Inclusive prefix sum of x (C, N) along axis 1; N % block == 0 (the
+    JAX kernel's contract).  CUDA tensor: the kernel; CPU tensor: the
+    plain twin."""
+    if x.dim() != 2:
+        raise ValueError(f"scan_lanes: expected (C, N), got "
+                         f"{tuple(x.shape)}")
+    N = x.shape[1]
+    if N % block:
+        raise ValueError(f"N={N} not a multiple of block={block}")
+    if x.is_cuda:
+        return scan_lanes_cuda(x)
+    if x.device.type != "cpu":
+        raise ValueError(f"scan_lanes: unsupported device {x.device}")
+    return scan_lanes_plain(x)

@@ -4,13 +4,15 @@ These need an NVIDIA card (marker `cuda`); they skip elsewhere.  On the
 card: python -m pytest tests/test_torch_cuda.py -q -p no:randomly
 (chip_smoke.py runs the same comparisons at the main path's shapes)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from imsim_tpu_torch.benchmarks.probe_pallas import make_frame
 from imsim_tpu_torch.convert import load_ccd_state
-from imsim_tpu_torch.ops import _build, raychain, scanrows, stencil
+from imsim_tpu_torch.ops import _build, probes, raychain, scanrows, stencil
 from imsim_tpu_torch.sensor.silicon import bf_taps
 
 
@@ -110,3 +112,81 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         raychain.field_to_sensor(st.tel, ctx, x, x, x, x, x, x, x,
                                  torch.zeros(7, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,block", [(3, 5000, 1000), (5, 3072, 1024),
+                                       (24, 1 << 20, 16_384)])
+def test_scan_lanes_kernel(cuda, C, N, block):
+    """K4 at row lengths with a ragged CUDA tile (5000, 3072 are not
+    multiples of the 1024-column tile) and whole tiles: f32 prefix sums of
+    0.01-scale deltas, 2000 nonzero per row -> 1e-5 absolute."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.zeros((C, N), device=cuda)
+    idx = torch.randint(0, N, (2000,), generator=g, device=cuda)
+    x[:, idx] = 0.01 * torch.randn((C, 2000), generator=g, device=cuda)
+    n0 = _build.LAUNCHES["scan_lanes"]
+    got = scanrows.scan_lanes(x, block=block)
+    want = scanrows.scan_lanes_plain(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["scan_lanes"] == n0 + 1
+    assert float((got - want).abs().max()) < 1e-5
+    with pytest.raises(ValueError):
+        scanrows.scan_lanes(x[:, :N - 1].contiguous(), block=block)
+
+
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h,w,th", [(9, 256, 384, 128), (3, 200, 300, 8)])
+def test_probe_kernels(cuda, k, h, w, th):
+    """P1-P7 against their plain twins, on whole and ragged 32 x 32 tiles:
+    the copies and one-tap windows exact, the stencils within 1e-5 of
+    max |out| (f32 sums of k^2 terms in the same order, FMA-contracted),
+    one launch on each kernel's own counter per call."""
+    img, P, dkf = make_frame(cuda, h, w, k, th)
+    runs = [
+        ("probe_p1", 0.0, lambda: probes.probe_copy2(img),
+         lambda: probes.probe_copy2_plain(img)),
+        ("probe_p2", 0.0, lambda: probes.probe_window(P, k, w),
+         lambda: probes.probe_window_plain(P, k, w)),
+        ("probe_p3", 0.0, lambda: probes.probe_window_tap(dkf, P, w),
+         lambda: probes.probe_window_tap_plain(dkf, P, w)),
+        ("probe_p4", 1e-5, lambda: probes.probe_stencil1(dkf, P, w),
+         lambda: probes.probe_stencil1_plain(dkf, P, w)),
+        ("probe_p5", 1e-5, lambda: probes.probe_stencil2(dkf, P, w),
+         lambda: probes.probe_stencil2_plain(dkf, P, w)),
+    ]
+    runs += [("probe_mk", 0.0 if b in ("a", "b") else 1e-5,
+              functools.partial(probes.probe_mk, b, dkf, P, w),
+              functools.partial(probes.probe_mk_plain, b, dkf, P, w))
+             for b in probes.MK_BODIES]
+    runs += [("probe_mk2", 1e-5,
+              functools.partial(probes.probe_mk2, b, dkf, P, w),
+              functools.partial(probes.probe_mk2_plain, b, dkf, P, w))
+             for b in probes.MK2_BODIES]
+    for name, rel, kern, plain in runs:
+        n0 = _build.LAUNCHES[name]
+        got = _outputs(kern())
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == n0 + 1
+        want = _outputs(plain())
+        assert all(tuple(a.shape) == (h, w) for a in got)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_bad_inputs(cuda):
+    _, P, dkf = make_frame(cuda, 128, 128, 9, 128)
+    with pytest.raises(ValueError):
+        probes.probe_stencil1(dkf, P.double())
+    with pytest.raises(ValueError):
+        probes.probe_stencil1(dkf, P, w=P.shape[1])
+    with pytest.raises(ValueError):
+        probes.probe_mk("z", dkf, P)
+    with pytest.raises(ValueError):
+        probes.probe_copy2(torch.zeros(9, device=cuda)[1:])

@@ -2,6 +2,7 @@
 tiny render from the committed state must run, with `jax` blocked by a
 meta-path hook.  chip_smoke.py's CPU rehearsal runs there too, and the
 script itself refuses to run without CUDA or outside the checkout."""
+import json
 import os
 import shutil
 import subprocess
@@ -64,8 +65,18 @@ def test_port_imports_and_renders_without_jax():
     lines = res.stdout.splitlines()
     n_mod = int(next(ln for ln in lines if ln.startswith("MODULES")).split()[1])
     assert n_mod >= 20
-    report = next(ln for ln in lines if ln.startswith("REPORT"))
-    assert '"scan_slot_prefix"' in report and '"stencil_pair"' in report
+    report = json.loads(next(ln for ln in lines
+                             if ln.startswith("REPORT")).split(" ", 1)[1])
+    names = [row["name"] for row in report["kernels"]]
+    assert names == ["scan_slot_prefix", "field_to_sensor", "stencil_pair",
+                     "scan_lanes", "probe_p1", "probe_p2", "probe_p3",
+                     "probe_p4", "probe_p5", "probe_mk", "probe_mk2"]
+    # the CPU rehearsal runs the plain twins: no launches, no gaps
+    assert all(row["launches"] == 0 and row["max_abs_err"] == 0
+               for row in report["kernels"][3:])
+    # the probe phase ran every probe_rows case
+    assert sum(ln.startswith("[probes] ") and ln.endswith(" ms")
+               for ln in lines) == 13
     # the rehearsal reached the slice's charge and landing checks
     assert "[slice] warm" in res.stdout and "landed fraction" in res.stdout
 
