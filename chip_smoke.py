@@ -328,7 +328,7 @@ def phase_probes(device, small: bool):
     """The three probe paths, counts set to 0 just before and read just
     after.  Each probe holds its kernels against their plain twins (K4:
     sqrt(n_obj) ulps of each row's scale; P1-P3 and the one-tap bodies
-    exact; the stencils 1e-5 of max |out|); the bars are checked here.
+    bitwise; the stencils 1e-5 of max |out|); the bars are checked here.
     Returns the report rows of K4 and P1-P7."""
     from imsim_tpu_torch.benchmarks import (probe_pallas, probe_pallas2,
                                             probe_rows)
@@ -382,6 +382,12 @@ def phase_probes(device, small: bool):
         log(f"[kernels] {name}: {r['ms']:.3f} ms (plain twin "
             f"{r['plain_ms']:.3f} ms)"
             + (f", slowest body {r['slowest']}" if "slowest" in r else ""))
+    # P6's one-tap bodies go through the vector copy kernel, as P2 and P3
+    # do; the row above reports only the slowest body
+    bodies = found["probe_mk"]["bodies"]
+    log("[kernels] probe_mk one-tap bodies: " + ", ".join(
+        f"{b} {bodies[b]['ms']:.4f} ms (plain twin "
+        f"{bodies[b]['plain_ms']:.4f} ms)" for b in ("a", "b")))
     return report
 
 

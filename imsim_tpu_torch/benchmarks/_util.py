@@ -66,12 +66,15 @@ def _outputs(x) -> tuple:
 def check_kernel(timer: Timer, kernel, plain, rel_bar: float) -> dict:
     """Run `kernel()` and its plain twin `plain()` on the same inputs,
     take the largest gap over all outputs against rel_bar * max |plain|
-    (rel_bar = 0: exact), then time both.  `within` <= 1 passes."""
+    (rel_bar = 0: bitwise equal, the sign of zero included), then time
+    both.  `within` <= 1 passes."""
     got, want = _outputs(kernel()), _outputs(plain())
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     scale = max(float(b.abs().max()) for b in want)
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, want))
     del got, want
     bar = rel_bar * scale
-    within = err / bar if bar > 0 else (0.0 if err == 0 else math.inf)
+    within = err / bar if bar > 0 else (0.0 if bitwise else math.inf)
     return dict(max_abs_err=err, scale=scale, bar=bar, within=within,
                 ms=timer.ms(kernel), plain_ms=timer.ms(plain))

@@ -23,8 +23,8 @@ from ..ops import probes
 from ._util import Timer, check_kernel
 
 # gap bars, as fractions of max |out|: the copies and the one-tap window
-# are one rounding (exact); a k^2-tap sum in another order than the twin
-# stays within 1e-5 (the bar of K3)
+# are one rounding (held bitwise); a k^2-tap sum in another order than
+# the twin stays within 1e-5 (the bar of K3)
 EXACT = 0.0
 STENCIL_BAR = 1e-5
 
@@ -52,7 +52,7 @@ def make_frame(device, h: int, w: int, k: int, th: int):
 
 def main(device="cuda", h: int = 4096, w: int = 4096, k: int = 9,
          th: int = 128, log=print) -> dict:
-    """Each of P1-P5 against its plain twin (exact for P1-P3, 1e-5 of
+    """Each of P1-P5 against its plain twin (bitwise for P1-P3, 1e-5 of
     max |out| for P4, P5), timed; returns {"kernels": {name: row}}."""
     img, P, dkf = make_frame(device, h, w, k, th)
     timer = Timer(device)

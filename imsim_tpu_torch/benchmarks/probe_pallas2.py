@@ -39,7 +39,7 @@ def _slowest(rows: dict) -> dict:
 
 def main(device="cuda", h: int = 4096, w: int = 4096, k: int = 9,
          th: int = 128, log=print) -> dict:
-    """Every P6 and P7 body against its plain twin (exact for the
+    """Every P6 and P7 body against its plain twin (bitwise for the
     one-tap windows a and b, else 1e-5 of max |out|), timed; returns
     {"kernels": {"probe_mk": row, "probe_mk2": row}}."""
     _, P, dkf = make_frame(device, h, w, k, th)

@@ -1,9 +1,11 @@
 // P1-P7: the kernels of the on-chip stencil probes.
 //
 // Replaces benchmarks/probe_pallas.py::p1 (copy_kernel) with
-// scale_copy_kernel, and probe_pallas.py::p2..p5 (dma_kernel,
-// smem_kernel, sten1_kernel, sten2_kernel) and probe_pallas2.py::mk and
-// mk2 (bodies ka..kh, ki, kh2, kh3) with window_taps_kernel.
+// scale_copy_kernel; probe_pallas.py::p2, p3 (dma_kernel, smem_kernel)
+// and probe_pallas2.py::mk's one-tap bodies ka, kb with
+// window_copy_kernel; probe_pallas.py::p4, p5 (sten1_kernel,
+// sten2_kernel) and probe_pallas2.py::mk and mk2 (bodies kc..kh, ki, kh2,
+// kh3) with window_taps_kernel.
 //
 // P1: out = s * x over n floats.  Bound on the H100: memory, 4 B read and
 // 4 B written per element (134 MB for the probe's 4096^2 frame, >= 0.04 ms
@@ -18,8 +20,40 @@
 // stencil (P4, P5, P6 e-h, P7).  The TPU bodies DMA a (TH + k - 1, Wp)
 // halo slab into VMEM and read taps as unaligned slices or pltpu.roll
 // shifts; the rolls never wrap inside the output window, so every body is
-// this window sum.  Bound: the one-tap windows are copies (memory); the
-// k^2-tap stencils are FMA throughput and shared-memory reads (compute).
+// this window sum.  imsim_window_taps sends one tap with one output to
+// window_copy_kernel and every other tap list to window_taps_kernel.
+//
+// One tap (P2, P3, P6 a and b; replaces probe_pallas.py::p2, p3 and
+// probe_pallas2.py::mk bodies ka, kb): out[r, c] = w * P[r + di, c + dj].
+// Bound: bytes, 4 read and 4 written per output (134.2 MB for the probes'
+// 4096^2 window, >= 0.040 ms at 3.35 TB/s).  Design, a copy on Hopper's
+// memory path:
+//   * no shared memory, no halo, no barrier: each thread stores float4s
+//     of an output row with __stcs (nothing re-reads the output),
+//     neighbouring threads on neighbouring addresses, and keeps
+//     kWinUnroll 16-byte loads (__ldg, the read-only path) in flight;
+//   * a work item is kWinSeg float4s of one row: a 256-thread block takes
+//     4 x 1024 floats of a row per item, one item per block;
+//   * each row is split at its own addresses (any W, Wp and base of P or
+//     out): a head of up to 6 floats (until out is 16-byte aligned, 4
+//     more where the source's boundary would fall before P's row),
+//     float4 stores, and a tail of up to 6 floats, head and tail
+//     scalar.  The
+//     source of the body then starts s = 0..3 floats past a 16-byte
+//     boundary; for s != 0 each thread loads its aligned float4, takes
+//     the next one from lane + 1 with __shfl_down_sync (lane 31 loads its
+//     own) and funnels the pair.  s is a template parameter of the row
+//     body, switched per row and uniform across the block;
+//   * every vector load lies inside the row of P it serves (no read
+//     outside P) and holds a needed element;
+//   * w * v, one rounding, exact for w = 1: outputs equal the twin's
+//     bitwise, the sign of a zero included (fmaf(w, v, 0) would turn
+//     w * v = -0 into +0).
+// Not TMA: it would stage every byte through shared memory for a pass
+// that does no arithmetic, and it needs 16-byte global strides and a
+// 16-byte-aligned base, which the window's contract does not give.
+//
+// More taps: bound by FMA throughput and shared-memory reads (compute).
 // Design, as csrc/stencil.cu:
 //   * one block per 32 x 32 output tile, 32 x 8 threads, each thread 4
 //     rows; the (32 + k - 1)^2 halo of P is staged once in shared memory
@@ -29,8 +63,7 @@
 //     warp-uniform constant-bank loads and concurrent launches with other
 //     taps cannot race;
 //   * k is a template parameter (the halo size), the tap count is not.
-// Accumulation: one float32 FMA per tap in list order; a one-tap window
-// is therefore a single rounding of w * P, exact for w = 1.
+// Accumulation: one float32 FMA per tap in list order.
 #include <cstdint>
 
 #include "common.cuh"
@@ -119,6 +152,118 @@ int launch_window(const float* P, float* o0, float* o1, int Hp, int Wp,
   return imsim_last_error();
 }
 
+constexpr int kWinThreads = 256;
+constexpr int kWinUnroll = 4;
+constexpr int kWinSeg = kWinThreads * kWinUnroll;  // float4s per work item
+
+// The four floats that start S floats into the pair (a, b).
+template <int S>
+__device__ __forceinline__ float4 funnel(float4 a, float4 b) {
+  if constexpr (S == 0) return a;
+  else if constexpr (S == 1) return make_float4(a.y, a.z, a.w, b.x);
+  else if constexpr (S == 2) return make_float4(a.z, a.w, b.x, b.y);
+  else return make_float4(a.w, b.x, b.y, b.z);
+}
+
+// Body vectors q = q0 + u * kWinThreads (u < kWinUnroll) of one row:
+// D4[q] = w * (the four floats at A4 + q, S floats in), for q < n4.  S > 0
+// also reads A4[n4] if n4 > 0.  Every thread of the block calls it (the
+// shuffle).
+template <int S>
+__device__ __forceinline__ void copy_row_body(const float4* __restrict__ A4,
+                                              float4* __restrict__ D4,
+                                              int q0, int n4, float w) {
+  const int lane = threadIdx.x & 31;
+  const int last = S && n4 > 0 ? n4 : n4 - 1;  // the last float4 read
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v[kWinUnroll], e[kWinUnroll];
+#pragma unroll
+  for (int u = 0; u < kWinUnroll; ++u) {
+    const int q = q0 + u * kWinThreads;
+    v[u] = q <= last ? __ldg(A4 + q) : zero;
+    // lane 31's next float4 belongs to the next warp: load it here
+    if constexpr (S != 0) {
+      e[u] = (lane == 31 && q < n4) ? __ldg(A4 + q + 1) : zero;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kWinUnroll; ++u) {
+    const int q = q0 + u * kWinThreads;
+    float4 nx = zero;
+    if constexpr (S != 0) {
+      nx.x = __shfl_down_sync(0xffffffffu, v[u].x, 1);
+      nx.y = __shfl_down_sync(0xffffffffu, v[u].y, 1);
+      nx.z = __shfl_down_sync(0xffffffffu, v[u].z, 1);
+      nx.w = __shfl_down_sync(0xffffffffu, v[u].w, 1);
+      if (lane == 31) nx = e[u];
+    }
+    if (q < n4) {
+      const float4 t = funnel<S>(v[u], nx);
+      __stcs(D4 + q, make_float4(w * t.x, w * t.y, w * t.z, w * t.w));
+    }
+  }
+}
+
+// out (H, W) = w * P[r + di, c + dj] over P (., Wp): work item i is
+// segment i % nseg of row i / nseg.
+__global__ void __launch_bounds__(kWinThreads)
+window_copy_kernel(const float* __restrict__ P, float* __restrict__ out,
+                   int Wp, int H, int W, int di, int dj, int nseg, float w) {
+  const long long items = static_cast<long long>(H) * nseg;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int r = static_cast<int>(item / nseg);
+    const int seg = static_cast<int>(item - static_cast<long long>(r) * nseg);
+    const float* row = P + static_cast<size_t>(r + di) * Wp;
+    const float* src = row + dj;
+    float* dst = out + static_cast<size_t>(r) * W;
+    // head: floats until dst is 16-byte aligned; s: the source's shift
+    // there; A4 = row + a, the 16-byte boundary at or below it, kept
+    // inside the row (one more float4 of head if not)
+    int h = static_cast<int>(
+        (0u - static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst) >> 2)) &
+        3u);
+    const int s = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(src + h) >> 2) & 3u);
+    int a = dj + h - s;
+    if (a < 0) {
+      h += 4;
+      a += 4;
+    }
+    // body float4s: stores inside the output row (h + 4 n4 <= W), loads
+    // inside P's row (a + 4 * last + 4 <= Wp)
+    const int room = min(W - h, Wp - a - (s ? 4 : 0));
+    const int n4 = room > 0 ? room / 4 : 0;
+    const float4* A4 = reinterpret_cast<const float4*>(row + a);
+    float4* D4 = reinterpret_cast<float4*>(dst + h);
+    const int q0 = seg * kWinSeg + static_cast<int>(threadIdx.x);
+    switch (s) {
+      case 0: copy_row_body<0>(A4, D4, q0, n4, w); break;
+      case 1: copy_row_body<1>(A4, D4, q0, n4, w); break;
+      case 2: copy_row_body<2>(A4, D4, q0, n4, w); break;
+      default: copy_row_body<3>(A4, D4, q0, n4, w); break;
+    }
+    if (seg == 0) {
+      // the scalar head (threads 0..5) and tail (threads 32..37)
+      const int t = static_cast<int>(threadIdx.x);
+      const int tail0 = h + 4 * n4;
+      int c = -1;
+      if (t < min(h, W)) c = t;
+      else if (t >= 32 && t - 32 < W - tail0) c = tail0 + t - 32;
+      if (c >= 0) __stcs(dst + c, w * __ldg(src + c));
+    }
+  }
+}
+
+int launch_window_copy(const float* P, float* out, int Wp, int H, int W,
+                       int di, int dj, float w, cudaStream_t s) {
+  const int nseg = (W + 4 * kWinSeg - 1) / (4 * kWinSeg);
+  long long blocks = static_cast<long long>(H) * nseg;
+  if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL;
+  window_copy_kernel<<<static_cast<unsigned>(blocks), kWinThreads, 0, s>>>(
+      P, out, Wp, H, W, di, dj, nseg, w);
+  return imsim_last_error();
+}
+
 }  // namespace
 
 // P1: out = s * x, n floats; x and out 16-byte aligned.
@@ -143,6 +288,8 @@ IMSIM_API int imsim_scale_copy(const float* x, float* out, long long n,
 
 // P2-P7: out_o (H, W) = sum_t w_o[t] * P[r + di[t], c + dj[t]] over P
 // (Hp, Wp); 0 <= di, dj < k (odd k <= 11); w1 is read only for nout = 2.
+// One tap with one output launches window_copy_kernel, any other tap list
+// window_taps_kernel.
 IMSIM_API int imsim_window_taps(const float* P, float* o0, float* o1,
                                 int Hp, int Wp, int H, int W, int k,
                                 int ntaps, int nout, const int* di,
@@ -171,6 +318,13 @@ IMSIM_API int imsim_window_taps(const float* P, float* o0, float* o1,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ntaps == 1 && nout == 1) {
+    if ((reinterpret_cast<uintptr_t>(P) | reinterpret_cast<uintptr_t>(o0)) &
+        3) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    return launch_window_copy(P, o0, Wp, H, W, di[0], dj[0], w0[0], s);
+  }
   switch (k) {
     case 3: return launch_window<3>(P, o0, o1, Hp, Wp, H, W, nout, taps, s);
     case 5: return launch_window<5>(P, o0, o1, Hp, Wp, H, W, nout, taps, s);

@@ -11,9 +11,12 @@ P1 doubles an (H, W) frame.  P2-P7 read the probes' zero-padded frame P
 `body_taps` lists them.  The TPU bodies read taps through DMA'd VMEM
 slabs, unaligned slices and `pltpu.roll`; the rolls never wrap inside the
 output window, so each body is this window sum.  The CUDA kernels are
-csrc/probes.cu (one scale-copy kernel, one window-tap kernel); the plain
-twins are shifted-slice sums in the same order.  Each TPU kernel has its
-own launch counter (probe_p1 .. probe_p5, probe_mk, probe_mk2).
+csrc/probes.cu: a scale-copy kernel (P1), a vector copy kernel for the
+one-tap bodies (P2, P3, P6 a and b: one tap, one output) and a
+window-tap kernel for every other body, chosen inside the C entry point
+from the tap list; the plain twins are shifted-slice sums in the same
+order.  Each TPU kernel has its own launch counter (probe_p1 ..
+probe_p5, probe_mk, probe_mk2).
 
 The weights cross to the kernel by value, so a dkf on the card is copied
 to the host (a synchronisation) at every call; the probes keep it on the

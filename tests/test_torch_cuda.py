@@ -179,6 +179,63 @@ def test_probe_kernels(cuda, k, h, w, th):
         assert err <= rel * scale, (name, err, scale)
 
 
+def _signed_frame(cuda, hp, wp, offset, seed):
+    """P (hp, wp) of standard normals with exact zeros of both signs, a
+    contiguous view `offset` floats into a larger buffer (offset 1: a
+    base off 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=hp * wp).astype(np.float32)
+    x[rng.random(hp * wp) < 0.05] = 0.0
+    x[rng.random(hp * wp) < 0.05] = -0.0
+    buf = torch.zeros(hp * wp + offset, device=cuda)
+    buf[offset:] = torch.as_tensor(x, device=cuda)
+    return buf[offset:].view(hp, wp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h,wp,w,offset", [
+    (1, 64, 256, 200, 0),     # P2 source shift s = 0 (dj = 0)
+    (3, 64, 256, 200, 0),     # s = 1 (dj = 1)
+    (5, 64, 256, 200, 0),     # s = 2
+    (7, 64, 256, 200, 0),     # s = 3
+    (3, 50, 256, 201, 0),     # W % 4 != 0: out rows change alignment
+    (3, 50, 259, 250, 0),     # Wp % 4 != 0: the shift changes per row
+    (9, 50, 264, 250, 1),     # P's base not 16-byte aligned
+    (3, 6, 9000, 8997, 0),    # rows of three work items
+    (3, 4, 5, 3, 1),          # rows too short for a float4
+])
+def test_one_tap_windows_bitwise(cuda, k, h, wp, w, offset):
+    """P2, P3 (negative and zero weight), P6 a and b through the vector
+    copy kernel: bitwise equal to their plain twins (one rounding of
+    w * P, so a zero keeps the twin's sign), one launch per call."""
+    P = _signed_frame(cuda, h + k - 1, wp, offset, seed=k * 1000 + wp)
+    assert (P.data_ptr() % 16 != 0) == (offset % 4 != 0)
+    runs = [("probe_p2", lambda: probes.probe_window(P, k, w),
+             lambda: probes.probe_window_plain(P, k, w))]
+    for w00 in (-1.7, 0.0):
+        dkf = torch.full((2, k * k), 0.5)
+        dkf[0, 0] = w00
+        runs.append(("probe_p3",
+                     functools.partial(probes.probe_window_tap, dkf, P, w),
+                     functools.partial(probes.probe_window_tap_plain, dkf,
+                                       P, w)))
+    if k > 1:   # bodies a and b read row 1 or column 1 of the window
+        dkf = torch.ones((2, k * k))
+        runs += [("probe_mk",
+                  functools.partial(probes.probe_mk, b, dkf, P, w),
+                  functools.partial(probes.probe_mk_plain, b, dkf, P, w))
+                 for b in ("a", "b")]
+    for name, kern, plain in runs:
+        n0 = _build.LAUNCHES[name]
+        got = kern()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == n0 + 1
+        want = plain()
+        assert tuple(got.shape) == (h, w)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+
+
 @pytest.mark.cuda
 def test_probe_kernels_reject_bad_inputs(cuda):
     _, P, dkf = make_frame(cuda, 128, 128, 9, 128)

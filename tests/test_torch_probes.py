@@ -176,6 +176,59 @@ def test_p6_p7_bodies(jax_probes, frame, body):
     _close(got, want, 0.0 if body in ("a", "b") else STENCIL_REL)
 
 
+# the bodies csrc/probes.cu sends to its vector copy kernel (one tap, one
+# output), with the JAX probe (0: probe_pallas, 1: probe_pallas2) and
+# body that compute them
+ONE_TAP = {"p2": (0, "dma_kernel"), "p3": (0, "smem_kernel"),
+           "a": (1, "ka"), "b": (1, "kb")}
+
+
+def test_other_bodies_have_several_taps():
+    """Every body but the one-tap ones takes the window-tap kernel."""
+    for body in ("p4", "p5") + TP.MK_BODIES + TP.MK2_BODIES:
+        if body in ONE_TAP:
+            continue
+        groups, _ = TP.body_taps(body, 9)
+        assert sum(len(g) for g in groups) > 1, body
+
+
+@pytest.mark.parametrize("body", list(ONE_TAP))
+def test_one_tap_bodies_bitwise(jax_probes, frame, body):
+    """A one-tap body has one tap and one output (what sends it to the
+    copy kernel), and its plain twin equals the JAX body bitwise: zeros
+    inside the window and, for P3, a negative and a zero weight, so a
+    -0 / +0 slip shows (a float comparison would not see it)."""
+    groups, nout = TP.body_taps(body, 9)
+    assert sum(len(g) for g in groups) == 1 and nout == 1
+    which, name = ONE_TAP[body]
+    reads_dk = body != "p2"
+    mod = jax_probes[which]
+    _, P, dkf = frame
+    P = P.copy()
+    R = mod.R
+    P[R + 3, R:R + 300] = 0.0
+    P[R + 5, R + 7:R + 90] = -0.0
+    P[2, 1:200] = -0.0
+    weights = (-abs(float(dkf[0, 0])), 0.0) if body == "p3" else (None,)
+    for w00 in weights:
+        dk = dkf.copy()
+        if w00 is not None:
+            dk[0, 0] = w00
+        call = _pallas(mod, getattr(mod, name), 1, smem=reads_dk)
+        want = np.asarray(call(jnp.asarray(dk), jnp.asarray(P)) if reads_dk
+                          else call(jnp.asarray(P)))
+        Pt, dt = torch.as_tensor(P), torch.as_tensor(dk)
+        if body == "p2":
+            got = TP.probe_window(Pt, mod.k, mod.W)
+        elif body == "p3":
+            got = TP.probe_window_tap(dt, Pt, mod.W)
+        else:
+            got = TP.probe_mk(body, dt, Pt, mod.W)
+        assert got.shape == want.shape
+        assert np.array_equal(got.numpy().view(np.int32),
+                              want.view(np.int32)), (body, w00)
+
+
 def test_probe_frame_matches_jax_probe(jax_probes):
     """make_frame builds the JAX probes' img, P and dkf
     (probe_pallas.py:35-40) at the same size."""
