@@ -11,20 +11,26 @@ ok line is never printed):
      (seconds and -Xptxas -v registers/shared memory per kernel);
   3. kernels vs plain twins on the card at the main path's shapes
      (bench workload: 1e5 objects, ~1e8 pooled photons, R22_S11,
-     6 batches, pair 4, share 4), with CUDA-event times;
+     6 batches, pair 4, share 4), with CUDA-event times, each beside its
+     bound (operations over 67 TFLOP/s FP32 or bytes over 3.35 TB/s,
+     whichever is larger) and, where one PyTorch call computes the same
+     function, that call's time (K3: one float32 conv2d, first held to
+     1e-5 of max |out| of the twin);
   4. the slice: render_ccd_pooled on that workload, cold and warm, with
      launch counts, peak memory, charge accounting and landed fraction;
   5. the probes: the three on-chip probe paths at their own sizes
      (imsim_tpu_torch.benchmarks.probe_rows at 24 x 16,777,216,
      probe_pallas and probe_pallas2 on 4096^2 frames with k = 9), each
-     of K4 and P1-P7 held against its plain twin, with launch counts;
-  6. the kernel report (JSON, all eleven kernels) and, last, the ok line.
+     of K4 and P1-P7 held against its plain twin, with launch counts,
+     bounds and one-call yardsticks (K4: torch.cumsum; P1-P3: their
+     twins' single call; P4-P7: one float32 conv2d each);
+  6. the kernel report (JSON, all eleven kernels, with bound_ms,
+     bound_by and library_ms) and, last, the ok line.
 
 The script needs CUDA and refuses to run without it.  `run()` takes a
 device and a size so the CPU tests can rehearse the same phases at a
 tiny size with the kernels' plain twins.
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -33,15 +39,18 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# the bench workload (bench.py main()): NB = 6 batches of the pooled
-# photons; batch_size is set high enough that pooled_plan keeps NB = 6
-BENCH_CFG = dict(nbatch=6, batch_size=30_000_000, pupil_pairing=4,
-                 screen_share=4, nsub=4)
-PX_RAD = 0.2 / 3600 * 3.141592653589793 / 180   # 1 pixel in radians
-
-
 def log(*a):
     print(*a, flush=True)
+
+
+def log_kernel(row: dict, note: str = "") -> None:
+    """One [kernels] line: time, share of the bound, twin, one call."""
+    lib = row["library_ms"]
+    log(f"[kernels] {row['name']}: {row['ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({row['bound_ms'] / row['ms']:.1%} of it), plain twin "
+        f"{row['plain_ms']:.3f} ms, one PyTorch call "
+        + ("none" if lib is None else f"{lib:.4f} ms") + note)
 
 
 def _import_port():
@@ -55,33 +64,6 @@ def _import_port():
         raise RuntimeError(f"imsim_tpu_torch imported from {pkg}, not from "
                            f"this checkout")
     return imsim_tpu_torch
-
-
-def workload(device, small: bool):
-    """(state, host, cfg, ctx): the bench scene on `device`, or for the
-    rehearsal a 500-object scene around the CCD centre seen through a
-    512 x 512 detector window."""
-    from imsim_tpu_torch.convert import load_ccd_state, synthetic_scene
-    from imsim_tpu_torch.image.photon_pooling import PoolingConfig
-
-    import numpy as np
-
-    state = load_ccd_state(device=device)
-    if not small:
-        host = synthetic_scene(state, device)
-        cfg = PoolingConfig(xsize=state.nx, ysize=state.ny, **BENCH_CFG)
-        return state, host, cfg, state.ctx
-    n = 500
-    cx, cy = np.median(state.thx), np.median(state.thy)
-    near = np.nonzero(np.hypot(state.thx - cx, state.thy - cy)
-                      < 180 * PX_RAD)[0][:n]
-    host = synthetic_scene(
-        state, device, n_obj=n, total_photons=3e5, n_bright=0,
-        field_angles=lambda x, y: (state.thx[near], state.thy[near]),
-        modes=None)
-    cfg = PoolingConfig(xsize=512, ysize=512, **dict(BENCH_CFG, nbatch=2))
-    ctx = dataclasses.replace(state.ctx, det_nx=512, det_ny=512)
-    return state, host, cfg, ctx
 
 
 def phase_device():
@@ -121,7 +103,8 @@ def phase_kernels(device, state, host, cfg, ctx):
     import numpy as np
     import torch
 
-    from imsim_tpu_torch.benchmarks._util import Timer
+    from imsim_tpu_torch.benchmarks._util import (PX_RAD, Timer, bound,
+                                                  check_kernel, conv2d_fp32)
     from imsim_tpu_torch.image import photon_pooling as PP
     from imsim_tpu_torch.ops import raychain, scanrows, stencil
     from imsim_tpu_torch.sensor.silicon import bf_taps
@@ -169,6 +152,8 @@ def phase_kernels(device, state, host, cfg, ctx):
     if len(bad):
         raise AssertionError(f"K1 columns {bad.tolist()} exceed "
                              f"sqrt(n) ulp: {gap.numpy()[bad]} > {tol[bad]}")
+    # bound: one add per element, d read and the rows written once; no
+    # single PyTorch call computes the slot-order scan
     rows.append(dict(
         name="scan_slot_prefix", route="cuda",
         source="imsim_tpu_torch/csrc/scanrows.cu",
@@ -176,7 +161,8 @@ def phase_kernels(device, state, host, cfg, ctx):
         max_abs_err=float(gap.max()),
         ms=timer.ms(lambda: scanrows.scan_slot_prefix(d, pair, share)),
         plain_ms=timer.ms(lambda: scanrows.scan_slot_prefix_plain(
-            d, pair, share))))
+            d, pair, share)),
+        library_ms=None, **bound(d.numel(), 8 * d.numel())))
     field = (got.reshape(C, N)[0].contiguous(),
              got.reshape(C, N)[1].contiguous())
     del d, got, want, gather, obj_map
@@ -207,40 +193,50 @@ def phase_kernels(device, state, host, cfg, ctx):
             raise AssertionError(f"K2 {form} form disagrees with its plain "
                                  f"twin")
         k2_err = max(k2_err, gaps["dxy"])
+    # bound: chain_flops per photon (counted from csrc/raychain.cu) and
+    # 11 float32 inputs read, 3 written per photon (the fused form
+    # timed); no single PyTorch call computes the chain
+    flops = raychain.chain_flops(raychain.chain_params(
+        state.tel, ctx, True, True, True, state.silicon))
+    log(f"[K2] {flops} operations per photon (ops/raychain.chain_flops)")
     rows.append(dict(
         name="field_to_sensor", route="cuda",
         source="imsim_tpu_torch/csrc/raychain.cu",
         replaces="imsim_tpu/ops/raychain.py:158", max_abs_err=k2_err,
         ms=timer.ms(lambda: k2(raychain.field_to_sensor, True)),
         plain_ms=timer.ms(lambda: k2(raychain.field_to_sensor_plain, True),
-                          reps=1)))
+                          reps=1),
+        library_ms=None, **bound(flops * N, 4 * 14 * N)))
     del args, draws, field, ref, out
 
     # ---- K3 on a full frame ---------------------------------------------
-    img = torch.rand((cfg.ysize, cfg.xsize), generator=gen,
-                     device=device) * 1e5
+    H, W = cfg.ysize, cfg.xsize
+    img = torch.rand((H, W), generator=gen, device=device) * 1e5
+    # the render's taps: host tensors, passed by value to the kernel
     dkx, dky = bf_taps(state.silicon)
-    hx, hy = dkx.cpu(), dky.cpu()
-    ox, oy = stencil.stencil_pair(img, dkx, dky)
-    px_, py_ = stencil.stencil_pair_plain(img, dkx, dky)
-    scale = max(float(px_.abs().max()), float(py_.abs().max()))
-    err = max(float((ox - px_).abs().max()), float((oy - py_).abs().max()))
-    log(f"[K3] {cfg.ysize}x{cfg.xsize}, k={dkx.shape[0]}: max gap "
-        f"{err:.3g} = {err / scale:.3g} of max |out| (<= 1e-5)")
-    if err > 1e-5 * scale:
+    k = dkx.shape[0]
+    # the yardstick: one float32 conv2d with both tap sets as channels
+    wt = torch.stack([dkx, dky])[:, None].to(device)
+    r3 = check_kernel(
+        timer, lambda: stencil.stencil_pair(img, dkx, dky),
+        lambda: stencil.stencil_pair_plain(img, dkx, dky), 1e-5,
+        (4 * k * k * H * W, 12 * H * W),
+        lambda: conv2d_fp32(img[None, None], wt, padding=k // 2)[0]
+        .unbind(0))
+    log(f"[K3] {H}x{W}, k={k}: max gap {r3['max_abs_err']:.3g} = "
+        f"{r3['max_abs_err'] / r3['scale']:.3g} of max |out| (<= 1e-5); "
+        f"conv2d (TF32 off) {r3['library_err'] / r3['scale']:.3g} of max "
+        f"|out| (<= 1e-5)")
+    if r3["within"] > 1.0:
         raise AssertionError("K3 disagrees with its plain twin")
     rows.append(dict(
         name="stencil_pair", route="cuda",
         source="imsim_tpu_torch/csrc/stencil.cu",
-        replaces="imsim_tpu/ops/stencil.py:70", max_abs_err=err,
-        # both timed with the taps on the host: taps on the card make
-        # every call wait for a copy back, and the events see that wait
-        ms=timer.ms(lambda: stencil.stencil_pair(img, hx, hy)),
-        plain_ms=timer.ms(lambda: stencil.stencil_pair_plain(img, hx,
-                                                             hy))))
+        replaces="imsim_tpu/ops/stencil.py:70",
+        **{key: r3[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")}))
     for row in rows:
-        log(f"[kernels] {row['name']}: {row['ms']:.3f} ms "
-            f"(plain twin {row['plain_ms']:.3f} ms)")
+        log_kernel(row)
     return rows, nb
 
 
@@ -377,11 +373,12 @@ def phase_probes(device, small: bool):
         r = found[name]
         report.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"]))
-        log(f"[kernels] {name}: {r['ms']:.3f} ms (plain twin "
-            f"{r['plain_ms']:.3f} ms)"
-            + (f", slowest body {r['slowest']}" if "slowest" in r else ""))
+            launches=launches[name],
+            **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}))
+        log_kernel(report[-1], f", slowest body {r['slowest']}"
+                   if "slowest" in r else "")
     # P6's one-tap bodies go through the vector copy kernel, as P2 and P3
     # do; the row above reports only the slowest body
     bodies = found["probe_mk"]["bodies"]
@@ -396,6 +393,8 @@ def run(device, small: bool = False) -> dict:
     import torch
 
     _import_port()
+    from imsim_tpu_torch.benchmarks._util import workload
+
     device = torch.device(device)
     if device.type == "cuda":
         phase_build()

@@ -5,7 +5,9 @@ timed against its plain twin, with the probe's own check of P5 against
 the shifted-slice sum (probe_pallas.py:205-218).
 
 P1 and P2 move 2 x 4 x H x W bytes and no arithmetic: their times are the
-card's copy floor for one frame.
+card's copy floor for one frame.  Each kernel's row also carries its
+bound and the time of one PyTorch call computing the same function: the
+twin's own call for P1-P3, one float32 conv2d for the stencils.
 
 On the card:  python3 -m imsim_tpu_torch.benchmarks.probe_pallas
 On the CPU, small:
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import probes
-from ._util import Timer, check_kernel
+from ._util import Timer, check_kernel, conv2d_fp32
 
 # gap bars, as fractions of max |out|: the copies and the one-tap window
 # are one rounding (held bitwise); a k^2-tap sum in another order than
@@ -50,36 +52,76 @@ def make_frame(device, h: int, w: int, k: int, th: int):
             torch.from_numpy(dkf))
 
 
+def window_work(body: str, k: int, h: int, w: int) -> tuple:
+    """(operations, bytes) of a window body over an (h, w) output: per
+    output pixel and output, n weighted taps cost n multiplies and n - 1
+    adds (a lone unweighted tap, a copy, costs none); the bytes are the
+    window region of P the taps reach, read once, and the outputs,
+    written once."""
+    groups, nout = probes.body_taps(body, k)
+    taps = [tap for g in groups for tap in g]
+    n_w = sum(t is not None for _, _, t in taps)
+    di = [t[0] for t in taps]
+    dj = [t[1] for t in taps]
+    reach = (h + max(di) - min(di)) * (w + max(dj) - min(dj))
+    flops = nout * h * w * max(2 * n_w - 1, 0)
+    return flops, 4 * (reach + nout * h * w)
+
+
+def window_library(body: str, dkf, P, k: int, w: int):
+    """One PyTorch call computing a window body (never called by the
+    port): the twin's own single call for the one-tap bodies, else one
+    VALID conv2d over P with the body's taps as weights, sliced to the
+    (h, w) window.  Returns a zero-argument callable."""
+    groups, nout = probes.body_taps(body, k)
+    taps = [tap for g in groups for tap in g]
+    if len(taps) == 1:
+        return lambda: probes.window_plain(body, dkf, P, k, w)
+    h = P.shape[0] - (k - 1)
+    wt = torch.zeros((nout, 1, k, k), dtype=torch.float32)
+    for o in range(nout):
+        for di, dj, t in taps:
+            wt[o, 0, di, dj] += dkf[o, t]
+    wt = wt.to(P.device)
+    x = P[None, None]
+    return lambda: conv2d_fp32(x, wt)[0, :, :h, :w].unbind(0)
+
+
 def main(device="cuda", h: int = 4096, w: int = 4096, k: int = 9,
          th: int = 128, log=print) -> dict:
     """Each of P1-P5 against its plain twin (bitwise for P1-P3, 1e-5 of
-    max |out| for P4, P5), timed; returns {"kernels": {name: row}}."""
+    max |out| for P4, P5), timed beside its bound and its one-call
+    yardstick; returns {"kernels": {name: row}}."""
     img, P, dkf = make_frame(device, h, w, k, th)
     timer = Timer(device)
+    per_body = lambda b: (window_work(b, k, h, w),  # noqa: E731
+                          window_library(b, dkf, P, k, w))
     runs = [
         ("probe_p1", "p1 copy x2", EXACT,
          lambda: probes.probe_copy2(img),
+         lambda: probes.probe_copy2_plain(img), (h * w, 8 * h * w),
          lambda: probes.probe_copy2_plain(img)),
         ("probe_p2", "p2 halo window", EXACT,
          lambda: probes.probe_window(P, k, w),
-         lambda: probes.probe_window_plain(P, k, w)),
+         lambda: probes.probe_window_plain(P, k, w), *per_body("p2")),
         ("probe_p3", "p3 one-tap window", EXACT,
          lambda: probes.probe_window_tap(dkf, P, w),
-         lambda: probes.probe_window_tap_plain(dkf, P, w)),
+         lambda: probes.probe_window_tap_plain(dkf, P, w), *per_body("p3")),
         ("probe_p4", "p4 stencil 1-out", STENCIL_BAR,
          lambda: probes.probe_stencil1(dkf, P, w),
-         lambda: probes.probe_stencil1_plain(dkf, P, w)),
+         lambda: probes.probe_stencil1_plain(dkf, P, w), *per_body("p4")),
         ("probe_p5", "p5 stencil 2-out", STENCIL_BAR,
          lambda: probes.probe_stencil2(dkf, P, w),
-         lambda: probes.probe_stencil2_plain(dkf, P, w)),
+         lambda: probes.probe_stencil2_plain(dkf, P, w), *per_body("p5")),
     ]
     report = {"kernels": {}}
-    for name, tag, bar, kern, plain in runs:
-        row = check_kernel(timer, kern, plain, bar)
+    for name, tag, bar, kern, plain, work, library in runs:
+        row = check_kernel(timer, kern, plain, bar, work, library)
         report["kernels"][name] = row
         log(f"{tag}: {row['ms']:.3f} ms (plain twin {row['plain_ms']:.3f} "
-            f"ms), max gap {row['max_abs_err']:.3g} of max |out| "
-            f"{row['scale']:.3g}")
+            f"ms, one call {row['library_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}), max gap "
+            f"{row['max_abs_err']:.3g} of max |out| {row['scale']:.3g}")
     # the probe's own check: P5 against the shifted-slice sum
     ox, oy = probes.probe_stencil2(dkf, P, w)
     xx, xy = probes.probe_mk2_plain("i", dkf, P, w)

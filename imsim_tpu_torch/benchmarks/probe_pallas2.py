@@ -23,15 +23,17 @@ import argparse
 
 from ..ops import probes
 from ._util import Timer, check_kernel
-from .probe_pallas import EXACT, STENCIL_BAR, make_frame
+from .probe_pallas import (EXACT, STENCIL_BAR, make_frame, window_library,
+                           window_work)
 
 
 def _slowest(rows: dict) -> dict:
     """One report row for a TPU kernel with several bodies: the slowest
-    body's times, the largest gap, and every body under `bodies`."""
+    body's times, bound and one-call yardstick, the largest gap, and
+    every body under `bodies`."""
     slow = max(rows, key=lambda b: rows[b]["ms"])
-    return dict(ms=rows[slow]["ms"], plain_ms=rows[slow]["plain_ms"],
-                slowest=slow,
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict({k: rows[slow][k] for k in keep}, slowest=slow,
                 max_abs_err=max(r["max_abs_err"] for r in rows.values()),
                 within=max(r["within"] for r in rows.values()),
                 bodies=rows)
@@ -40,7 +42,8 @@ def _slowest(rows: dict) -> dict:
 def main(device="cuda", h: int = 4096, w: int = 4096, k: int = 9,
          th: int = 128, log=print) -> dict:
     """Every P6 and P7 body against its plain twin (bitwise for the
-    one-tap windows a and b, else 1e-5 of max |out|), timed; returns
+    one-tap windows a and b, else 1e-5 of max |out|), timed beside its
+    bound and its one-call yardstick; returns
     {"kernels": {"probe_mk": row, "probe_mk2": row}}."""
     _, P, dkf = make_frame(device, h, w, k, th)
     timer = Timer(device)
@@ -54,10 +57,14 @@ def main(device="cuda", h: int = 4096, w: int = 4096, k: int = 9,
         for body in bodies:
             bar = EXACT if body in ("a", "b") else STENCIL_BAR
             row = check_kernel(timer, lambda: kern(body, dkf, P, w),
-                               lambda: plain(body, dkf, P, w), bar)
+                               lambda: plain(body, dkf, P, w), bar,
+                               window_work(body, k, h, w),
+                               window_library(body, dkf, P, k, w))
             rows[body] = row
             log(f"{name}-{body}: {row['ms']:.3f} ms (plain twin "
-                f"{row['plain_ms']:.3f} ms), max gap "
+                f"{row['plain_ms']:.3f} ms, one call "
+                f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+                f"ms by {row['bound_by']}), max gap "
                 f"{row['max_abs_err']:.3g} of max |out| {row['scale']:.3g}")
         report["kernels"][name] = _slowest(rows)
     return report

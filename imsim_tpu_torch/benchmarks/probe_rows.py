@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import scanrows
-from ._util import Timer
+from ._util import Timer, bound
 
 PAIR = SHARE = 4            # the pe = 16 slot layout of the bench batch
 
@@ -223,10 +223,14 @@ def main(device="cuda", n: int = 16_777_216, c: int = 24,
     rows_gap = float((got - gather_rows(data, 0).T).abs().max())
     rows_scale = float(data.params.abs().max())
     del got, want
+    # bound: C x N adds, C x N floats read and written; the one PyTorch
+    # call computing the same function is the plain twin's torch.cumsum
     report["kernels"]["scan_lanes"] = dict(
         max_abs_err=float(gap.max()), within=float((gap / tol).max()),
         ms=timer.ms(lambda: scanrows.scan_lanes(x)),
-        plain_ms=timer.ms(lambda: scanrows.scan_lanes_plain(x)))
+        plain_ms=timer.ms(lambda: scanrows.scan_lanes_plain(x)),
+        library_ms=timer.ms(lambda: torch.cumsum(x, dim=1)),
+        **bound(x.numel(), 8 * x.numel()))
     report["rows"] = dict(max_abs_err=rows_gap, scale=rows_scale)
     k4 = report["kernels"]["scan_lanes"]
     log(f"K4 scan_lanes ({c}, {n}): {k4['ms']:.3f} ms, plain twin "

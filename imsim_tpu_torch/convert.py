@@ -9,9 +9,10 @@ data:
     attribute (np.asarray on each leaf) and return the port's; they
     never import JAX, so they work equally on a namespace of numpy
     arrays loaded from disk;
-  * `export_ccd_state` (run where JAX is installed) writes bench.py
-    main()'s state for R22_S11 to an .npz; `load_ccd_state` reads it
-    back without JAX;
+  * `load_ccd_state` reads bench.py main()'s state for R22_S11 back
+    from the committed .npz (`python tests/test_torch_state.py`, where
+    JAX is installed, writes it; the port itself never imports the JAX
+    package);
   * `synthetic_scene` reproduces bench.build_synthetic_host's numpy
     draws with the field angles from the state.
 """
@@ -82,7 +83,7 @@ def optics_context_from_numpy(ctx) -> OpticsContext:
                          det_ny=int(np.asarray(ctx.det_ny)), **kw)
 
 
-def silicon_from_numpy(sil, device) -> SiliconParams:
+def silicon_from_numpy(sil) -> SiliconParams:
     waves = getattr(sil, "tr_waves", None)
     env = getattr(sil, "tr_env", None)
     center = np.asarray(sil.treering_center, np.float32)
@@ -90,8 +91,7 @@ def silicon_from_numpy(sil, device) -> SiliconParams:
         thickness_um=float(np.asarray(sil.thickness_um)),
         pixel_um=float(np.asarray(sil.pixel_um)),
         diffusion_um=float(np.asarray(sil.diffusion_um)),
-        bf_kernel=torch.tensor(np.asarray(sil.bf_kernel, np.float32),
-                                  device=device),
+        bf_kernel=np.array(sil.bf_kernel, np.float32),
         treering_center=(float(center[0]), float(center[1])),
         tr_waves=None if waves is None else np.asarray(waves, np.float32),
         tr_env=None if env is None else np.asarray(env, np.float32),
@@ -159,11 +159,6 @@ class CcdState:
     seed: int              # synthetic-scene seed the angles belong to
     total_photons: float
     n_bright: int
-
-
-_BENCH = dict(det_name="R22_S11", seed=0, n_obj=100_000,
-              total_photons=1.0e8, n_bright=24, atm_seed=42 + 271828,
-              fwhm=0.7)
 
 
 def bench_columns(seed: int, n_obj: int, total_photons: float,
@@ -244,92 +239,7 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
                      n_objects=n_obj)
 
 
-def export_ccd_state(path: str = BENCH_STATE) -> dict:
-    """Write bench.py main()'s per-CCD state for R22_S11 (pointing 30,
-    -20 deg, mjd 60674.2, r band) to `path`.  Needs the JAX package;
-    imports it here only.  Returns the arrays written."""
-    from imsim_tpu.electronics.camera import get_camera
-    from imsim_tpu.image.photon_pooling import (PoolingConfig,
-                                                classify_objects,
-                                                make_psf_mtf)
-    from imsim_tpu.image.scene import DeviceScene as JScene
-    from imsim_tpu.image.scene import SceneHost as JHost
-    from imsim_tpu.optics.wcs_factory import make_wcs_factory
-    from imsim_tpu.photons import profiles as JP
-    from imsim_tpu.photons.optics_ops import make_optics_context
-    from imsim_tpu.psf.atmosphere import (AtmConfig, make_screens,
-                                          second_kick_table, solve_r0_500)
-    from imsim_tpu.sensor.silicon import SiliconParams as JSilicon
-    from imsim_tpu.sensor.treerings import TreeRings
-    from imsim_tpu.utils.lookup import PolyCDF as JPoly
-
-    B = _BENCH
-    deg = np.pi / 180
-    fac = make_wcs_factory(30 * deg, -20 * deg, mjd=60674.2, band="r")
-    ccd = get_camera("LsstCamSim")[B["det_name"]]
-    nx, ny = ccd.bounds.width, ccd.bounds.height
-    wcs = fac.get_wcs(ccd)
-
-    def field_angles(x, y):
-        return fac.icrf_to_field(*wcs.xy_to_radec(x, y))
-
-    cols, flux = bench_columns(B["seed"], B["n_obj"], B["total_photons"],
-                               B["n_bright"], nx, ny, field_angles)
-    n_pad = int(2 ** np.ceil(np.log2(B["n_obj"])))
-
-    def pad(a, fill=0.0):
-        out = np.full(n_pad, fill, np.float32)
-        out[:B["n_obj"]] = a
-        return out
-
-    wl = np.linspace(552.0, 691.0, WL_CDF_K).astype(np.float32)
-    jscene = JScene.from_columns(
-        **{k: pad(v, 1.0 if k in ("p1", "p2", "mu") else 0.0)
-           for k, v in cols.items()},
-        wl_icdf=np.broadcast_to(wl, (n_pad, WL_CDF_K)))
-    jhost = JHost(scene=jscene, flux=flux, nominal_flux=flux,
-                  n_objects=B["n_obj"])
-    pcfg = PoolingConfig(fft_sb_thresh=2e5, fwhm=B["fwhm"], pixel_scale=0.2,
-                         noise_var=17_500.0 * 0.04)
-    modes = classify_objects(jhost, pcfg, make_psf_mtf(pcfg))
-
-    octx = make_optics_context(fac, ccd)
-    sil = JSilicon.make(treering_model=TreeRings().get(B["det_name"]))
-    atm = AtmConfig(fwhm=B["fwhm"])
-    sk_poly, _ = JPoly.fit(second_kick_table(atm, 622.0))
-    screens = make_screens(B["atm_seed"], atm)
-    airmass = 1.0 / max(np.sin(np.radians(atm.altitude_deg)), 0.1)
-    r0_500 = solve_r0_500(atm.fwhm, atm.L0) * airmass ** (-3.0 / 5.0)
-    exp_disk = JP.exp_disk_poly()
-
-    jtel = fac.telescope.for_detector(B["det_name"])
-    containers = dict(
-        tel=(jtel, ("z0", "c", "kappa", "coefs", "aper", "shift", "rot",
-                    "kinds")),
-        ctx=(octx, _CTX_F32 + _CTX_F64 + ("det_nx", "det_ny")),
-        sil=(sil, ("thickness_um", "pixel_um", "diffusion_um", "bf_kernel",
-                   "treering_center", "tr_waves", "tr_env", "tr_active")),
-        sk=(sk_poly, _POLY), exp=(exp_disk, _POLY),
-        scr=(screens, ("weights", "winds", "size", "scale", "t0")))
-    arrays = {f"{p}.{k}": np.asarray(getattr(obj, k))
-              for p, (obj, keys) in containers.items() for k in keys}
-    arrays.update({f"sersic.{k}": np.asarray(v)
-                   for k, v in zip(_SERSIC, JP.sersic_poly2d())})
-    arrays.update({
-        "scr.r0_500": np.float64(r0_500), "scr.L0": np.float64(atm.L0),
-        "scr.kcrit": np.float64(atm.kcrit),
-        "det_name": np.array(B["det_name"]), "nx": np.int32(nx),
-        "ny": np.int32(ny), "scene.seed": np.int64(B["seed"]),
-        "scene.total_photons": np.float64(B["total_photons"]),
-        "scene.n_bright": np.int32(B["n_bright"]),
-        "scene.thx": np.asarray(cols["x"], np.float32),
-        "scene.thy": np.asarray(cols["y"], np.float32),
-        "scene.modes": np.asarray(modes, np.int8)})
-    np.savez_compressed(path, **arrays)
-    return arrays
-
-
-def load_ccd_state(path: str = BENCH_STATE, device="cpu") -> CcdState:
+def load_ccd_state(path: str = BENCH_STATE, device="cuda") -> CcdState:
     """Read an exported CCD state (no JAX needed): the stored leaves of
     each container go through the same *_from_numpy converters."""
     with np.load(path) as z:
@@ -345,7 +255,7 @@ def load_ccd_state(path: str = BENCH_STATE, device="cpu") -> CcdState:
         det_name=str(a["det_name"]), nx=int(a["nx"]), ny=int(a["ny"]),
         tel=telescope_from_numpy(ns["tel"]),
         ctx=optics_context_from_numpy(ns["ctx"]),
-        silicon=silicon_from_numpy(ns["sil"], device),
+        silicon=silicon_from_numpy(ns["sil"]),
         sk_table=polycdf_from_numpy(ns["sk"]),
         screen_spec=screen_spec_from_numpy(scr, float(scr.r0_500),
                                            float(scr.L0), float(scr.kcrit)),

@@ -12,10 +12,13 @@ composes photons.optics_ops and sensor.silicon.
 from __future__ import annotations
 
 import ctypes
+import os
+import re
 
 import numpy as np
 import torch
 
+from ..optics.telescope import DETECTOR, MIRROR, REFRACT_IN, REFRACT_OUT
 from ..photons import diffraction as D
 from ..photons.optics_ops import OpticsContext, field_to_sensor_plain \
     as _chain_plain
@@ -24,13 +27,18 @@ from ..sensor.silicon import (absorption_cheb, absorption_length_poly,
 from . import _build
 
 MAX_SURF = 16
-SURF_W = 20          # 16 + N_COEF (N_COEF = 4)
+TEL_W = 20           # the telescope's surface matrix: 16 + N_COEF (4)
+SURF_W = 26          # the kernel's folded per-surface block (below)
 N_ABS = 29
+MAX_NEWTON = 3       # NEWTON_POLISH + 2 on an asphere
 
 
 class ChainParams(ctypes.Structure):
     """Mirror of `struct ChainParams` in csrc/raychain.cu (all 4-byte
-    fields, no padding; the sizes are checked against the library)."""
+    fields, no padding; the sizes are checked against the library).
+    `surf` holds per surface: c, 1 + kappa, (1 + kappa) c^2,
+    (1 + kappa) c^2 / 2, a_i (4), (i + 2) a_i (4), ap_lo^2 (-1 when
+    ap_lo <= 0), ap_hi^2, vertex (3), rotation (9)."""
 
     _fields_ = [
         ("surf", ctypes.c_float * (MAX_SURF * SURF_W)),
@@ -62,6 +70,25 @@ class ChainParams(ctypes.Structure):
     ]
 
 
+def surface_block(tel) -> np.ndarray:
+    """(S, SURF_W) float32: each surface's constants folded in float64,
+    then rounded once (the plain twin folds the same python-float
+    subexpressions, e.g. (1 + kappa) c^2, before they meet a tensor)."""
+    S, K = len(tel.kinds), tel.n_coef
+    m = tel.surf.astype(np.float64)
+    c, kappa, coefs = m[:, 0], m[:, 1], m[:, 2:2 + K]
+    ap_lo, ap_hi = m[:, 2 + K], m[:, 3 + K]
+    k1 = 1.0 + kappa
+    blk = np.concatenate([
+        c[:, None], k1[:, None], (k1 * c * c)[:, None],
+        (c * c * k1 * 0.5)[:, None], coefs,
+        coefs * np.arange(2, K + 2, dtype=np.float64),
+        np.where(ap_lo > 0, ap_lo * ap_lo, -1.0)[:, None],
+        (ap_hi * ap_hi)[:, None], m[:, 4 + K:16 + K]], axis=1)
+    assert blk.shape == (S, SURF_W)
+    return blk.astype(np.float32)
+
+
 def chain_params(tel, ctx: OpticsContext, apply_dcr: bool,
                  apply_diffraction: bool, field_rotation: bool,
                  silicon=None) -> ChainParams:
@@ -70,15 +97,18 @@ def chain_params(tel, ctx: OpticsContext, apply_dcr: bool,
     then rounded to float32 (the reference folds the same python-float
     subexpressions at trace time)."""
     S = len(tel.kinds)
-    if S > MAX_SURF or tel.surf.shape[1] != SURF_W:
-        raise ValueError(f"telescope {tel.surf.shape} exceeds the kernel's "
-                         f"({MAX_SURF}, {SURF_W}) surface block")
+    newton = [tel.newton_steps(i) for i in range(S)]
+    if S > MAX_SURF or tel.surf.shape[1] != TEL_W \
+            or not all(1 <= n <= MAX_NEWTON for n in newton):
+        raise ValueError(f"telescope {tel.surf.shape} (Newton steps "
+                         f"{newton}) exceeds the kernel's {MAX_SURF} "
+                         f"surfaces of width {TEL_W}, 1-{MAX_NEWTON} steps")
     p = ChainParams()
     surf = np.zeros((MAX_SURF, SURF_W), np.float32)
-    surf[:S] = tel.surf
+    surf[:S] = surface_block(tel)
     p.surf[:] = surf.ravel().tolist()
     p.kinds[:S] = [int(k) for k in tel.kinds]
-    p.newton[:S] = [tel.newton_steps(i) for i in range(S)]
+    p.newton[:S] = newton
     p.n_surf = S
     p.apply_dcr = int(apply_dcr)
     p.apply_diffr = int(apply_diffraction)
@@ -108,6 +138,44 @@ def chain_params(tel, ctx: OpticsContext, apply_dcr: bool,
         p.diff_um = silicon.diffusion_um
         p.abs_cheb[:] = absorption_cheb().tolist()
     return p
+
+
+def stage_ops() -> dict:
+    """Operations per photon of each stage of csrc/raychain.cu, from the
+    `ops[stage] = n` notes beside the code they count (the counting rule
+    is in the source's header)."""
+    with open(os.path.join(_build.CSRC, "raychain.cu")) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"ops\[(\w+)\] = (\d+)", f.read())}
+
+
+def chain_flops(p: ChainParams) -> int:
+    """Operations per photon of the CUDA chain for the packed `p` (its
+    surface kinds, Newton counts and stage flags).  Per surface:
+    to_local + root + steps * (newton [+ asphere]) + hit, then (not on
+    the detector) normal [+ normal_asphere] + mirror or refract +
+    to_global."""
+    F = stage_ops()
+    n = F["entrance"] + F["silica"] + F["pixels"] + F["slopes"]
+    n += F["dcr"] if p.apply_dcr else 0
+    if p.apply_diffr:
+        n += F["diffraction"] + (F["field_rotation"] if p.field_rotation
+                                 else 0)
+    n += F["silicon"] if p.fused else 0
+    for k in range(p.n_surf):
+        steps = p.newton[k]
+        n += F["to_local"] + F["root"] + F["hit"] + steps * (
+            F["newton"] + (F["asphere"] if steps > 1 else 0))
+        kind = p.kinds[k]
+        if kind == DETECTOR:
+            break
+        n += F["normal"] + F["to_global"] + (F["normal_asphere"]
+                                             if steps > 1 else 0)
+        if kind == MIRROR:
+            n += F["mirror"]
+        elif kind in (REFRACT_IN, REFRACT_OUT):
+            n += F["refract"]
+    return n
 
 
 def field_to_sensor_plain(tel, ctx, thx, thy, pu, pv, wl, t, flux, normal,

@@ -51,7 +51,8 @@ class SiliconParams:
     thickness_um: float
     pixel_um: float
     diffusion_um: float          # sigma at full drift
-    bf_kernel: torch.Tensor      # (2R+1, 2R+1) per-electron BF kernel
+    bf_kernel: np.ndarray        # (2R+1, 2R+1) per-electron BF kernel,
+                                 #   float32 on the host (K3's taps)
     treering_center: tuple       # (cx, cy) pixels
     tr_waves: np.ndarray | None  # (nfreq, 3): (2 pi/period, phase, amp)
     tr_env: np.ndarray | None    # (3,): (a, b, norm)
@@ -131,20 +132,22 @@ def tree_ring_field(params: SiliconParams, shape, device, step=None):
 
 
 def bf_taps(params: SiliconParams):
-    """(dKx, dKy): central differences of the BF kernel along x and y,
-    the two k x k tap sets of the displacement stencil."""
-    Kp = torch.nn.functional.pad(params.bf_kernel, (1, 1, 1, 1))
-    dKx = 0.5 * (Kp[1:-1, 2:] - Kp[1:-1, :-2])
-    dKy = 0.5 * (Kp[2:, 1:-1] - Kp[:-2, 1:-1])
-    return dKx.contiguous(), dKy.contiguous()
+    """(dKx, dKy): central differences of the BF kernel along x and y
+    (zero outside it), the two k x k tap sets of the displacement
+    stencil, as float32 CPU tensors.  K3 takes its taps by value, so
+    they are built on the host: the render never waits for a copy
+    back."""
+    Kp = np.pad(params.bf_kernel, 1)
+    half = np.float32(0.5)
+    return (torch.from_numpy(half * (Kp[1:-1, 2:] - Kp[1:-1, :-2])),
+            torch.from_numpy(half * (Kp[2:, 1:-1] - Kp[:-2, 1:-1])))
 
 
 def displacement_field(image: torch.Tensor, params: SiliconParams):
     """BF displacement field from the accumulated charge (K3)."""
     from ..ops.stencil import stencil_pair
 
-    dKx, dKy = bf_taps(params)
-    return stencil_pair(image, dKx, dKy)
+    return stencil_pair(image, *bf_taps(params))
 
 
 def bf_redistribute(chunk_img, dx, dy):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from imsim_tpu_torch.benchmarks import chain_random
+from imsim_tpu_torch.benchmarks._util import conv2d_fp32
 from imsim_tpu_torch.benchmarks.probe_pallas import make_frame
 from imsim_tpu_torch.convert import load_ccd_state
 from imsim_tpu_torch.ops import _build, probes, raychain, scanrows, stencil
@@ -59,6 +61,56 @@ def test_stencil_pair_kernel(cuda, k):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+def _stencil_gap(got, want):
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", stencil.CUDA_TAP_SIZES)
+@pytest.mark.parametrize("H,W,offset", [
+    (301, 517, 0),     # ragged 64 x 64 tiles, W % 4 != 0: scalar path
+    (128, 192, 0),     # whole tiles, W % 4 == 0: 16-byte path
+    (130, 4100, 0),    # W % 4 == 0, ragged tiles: 16-byte path
+    (67, 260, 1),      # W % 4 == 0 but the base off 16 bytes: scalar
+    (1, 777, 0),       # one row
+    (523, 1, 0),       # one column
+])
+def test_stencil_pair_kernel_shapes(cuda, k, H, W, offset):
+    """Every instantiated k on frames that are not whole tiles or rows
+    of float4s, a 1-row and a 1-column frame: within 1e-5 of max |out|
+    of the twin (the same (i, j) FMA order), one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(k * 100 + H)
+    buf = torch.rand(H * W + offset, generator=g, device=cuda) * 1e5
+    img = buf[offset:].view(H, W)
+    kx = torch.randn((k, k), generator=g, device=cuda).cpu() * 1e-6
+    ky = torch.randn((k, k), generator=g, device=cuda).cpu() * 1e-6
+    n0 = _build.LAUNCHES["stencil_pair"]
+    got = stencil.stencil_pair(img, kx, ky)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil_pair"] == n0 + 1
+    assert _stencil_gap(got, stencil.stencil_pair_plain(img, kx, ky)) \
+        <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 9, 11])
+def test_stencil_pair_conv2d_yardstick(cuda, k):
+    """The yardstick chip_smoke.py times beside K3 (one float32 conv2d,
+    TF32 off, both tap sets as channels) computes the twin's function to
+    1e-5 of max |out|, and leaves cuDNN's TF32 setting as it found it."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    img = torch.rand((301, 517), generator=g, device=cuda) * 1e5
+    kx, ky = (torch.randn((k, k), generator=g, device=cuda) * 1e-6
+              for _ in range(2))
+    before = torch.backends.cudnn.allow_tf32
+    out = conv2d_fp32(img[None, None], torch.stack([kx, ky])[:, None],
+                      padding=k // 2)[0]
+    assert torch.backends.cudnn.allow_tf32 == before
+    assert _stencil_gap(out.unbind(0),
+                        stencil.stencil_pair_plain(img, kx, ky)) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_stencil_pair_bench_taps(cuda):
     st = load_ccd_state(device=cuda)
@@ -94,6 +146,67 @@ def test_field_to_sensor_kernel(cuda, fused):
     torch.cuda.synchronize()
     gaps = raychain.chain_gaps(want, got, st.ctx, *args[2:6], args[7])
     assert raychain.gaps_ok(gaps, fused), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("off", [None, "apply_dcr", "apply_diffraction",
+                                 "field_rotation"])
+def test_field_to_sensor_kernel_forms(cuda, fused, off):
+    """n = 1,000,003 (not a multiple of the block or of the photons per
+    thread), each stage flag off in turn, both forms: within the chain's
+    bar of the twin (ops/raychain.gaps_ok), one launch per call."""
+    st = load_ccd_state(device=cuda)
+    n = 1_000_003
+    args, draws = chain_random.photons(n, 5, cuda)
+    kw = dict(apply_dcr=True, apply_diffraction=True, field_rotation=True)
+    if off:
+        kw[off] = False
+    if fused:
+        kw.update(silicon=st.silicon, si_draws=draws)
+    n0 = _build.LAUNCHES["field_to_sensor"]
+    got = raychain.field_to_sensor(st.tel, st.ctx, *args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["field_to_sensor"] == n0 + 1
+    assert all(tuple(o.shape) == (n,) for o in got)
+    want = raychain.field_to_sensor_plain(st.tel, st.ctx, *args, **kw)
+    gaps = raychain.chain_gaps(
+        want, got, st.ctx, *args[2:6], args[7],
+        apply_diffraction=kw["apply_diffraction"],
+        field_rotation=kw["field_rotation"])
+    assert raychain.gaps_ok(gaps, fused), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 77, 129, 300])
+def test_field_to_sensor_kernel_ragged_tail(cuda, n):
+    """A batch shorter than a block, or ending inside one: each photon's
+    outputs equal those of the same photon in a 4,096-photon batch
+    (bitwise: the same thread and photon slot computes it), and nothing
+    is written past n."""
+    st = load_ccd_state(device=cuda)
+    args, draws = chain_random.photons(4096, 6, cuda)
+    kw = dict(silicon=st.silicon)
+    big = raychain.field_to_sensor(st.tel, st.ctx, *args, **kw,
+                                   si_draws=draws)
+    small = raychain.field_to_sensor(
+        st.tel, st.ctx, *(a[:n].contiguous() for a in args), **kw,
+        si_draws=tuple(d[:n].contiguous() for d in draws))
+    torch.cuda.synchronize()
+    for a, b in zip(small, big):
+        assert tuple(a.shape) == (n,)
+        assert torch.equal(a.view(torch.int32), b[:n].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_field_to_sensor_random_photons_beyond_bar_only_at_ties(cuda):
+    """The bench batch's 18.68 M photons drawn uniformly
+    (benchmarks/chain_random), both forms: the kernel meets the chain's
+    bar (ops/raychain.gaps_ok) once the photons at a tie between two
+    spider edges are left out, so every photon past 0.35 px away from
+    the edges sits at such a tie."""
+    for form, r in chain_random.main(cuda, log=lambda *_: None).items():
+        assert r["ok_but_ties"], (form, r)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,11 @@
-"""The card has no JAX: every imsim_tpu_torch module must import, and a
-tiny render from the committed state must run, with `jax` blocked by a
-meta-path hook.  chip_smoke.py's CPU rehearsal runs there too, and the
-script itself refuses to run without CUDA or outside the checkout."""
+"""The card has no JAX, and the port stands alone: every imsim_tpu_torch
+module must import, and a tiny render from the committed state must run,
+with `jax` and the JAX package `imsim_tpu` blocked by a meta-path hook;
+no source of the port imports `imsim_tpu`.  chip_smoke.py's CPU
+rehearsal runs there too, and the script itself refuses to run without
+CUDA or outside the checkout."""
+import ast
+import glob
 import json
 import os
 import shutil
@@ -17,9 +21,15 @@ import sys
 
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"{name} is blocked: the port must not use JAX")
+        if name.split(".")[0] in ("jax", "jaxlib", "imsim_tpu"):
+            raise ImportError(f"{name} is blocked: the port must not use "
+                              f"JAX or the JAX package")
         return None
+
+
+def blocked():
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "imsim_tpu")]
 
 
 sys.meta_path.insert(0, _NoJax())
@@ -39,12 +49,12 @@ names = [m.name for m in pkgutil.walk_packages(imsim_tpu_torch.__path__,
                                                "imsim_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not blocked(), blocked()
 
 import chip_smoke
 
 report = chip_smoke.run("cpu", small=True)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not blocked(), blocked()
 print("MODULES", len(names))
 print("REPORT", json.dumps(report))
 '''
@@ -79,6 +89,31 @@ def test_port_imports_and_renders_without_jax():
                for ln in lines) == 13
     # the rehearsal reached the slice's charge and landing checks
     assert "[slice] warm" in res.stdout and "landed fraction" in res.stdout
+
+
+def _imported_modules(path):
+    """Top-level module names that `path` imports (absolute imports)."""
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return [n.split(".")[0] for n in names]
+
+
+def test_port_sources_never_import_the_jax_package():
+    """Static check of every port source and chip_smoke.py: no `import
+    imsim_tpu...` or `from imsim_tpu... import` anywhere (docstrings that
+    name a counterpart are fine)."""
+    paths = glob.glob(os.path.join(REPO, "imsim_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(paths) >= 30
+    bad = {os.path.relpath(p, REPO): mods for p in paths
+           if (mods := sorted({m for m in _imported_modules(p)
+                               if m in ("imsim_tpu", "jax", "jaxlib")}))}
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

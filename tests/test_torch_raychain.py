@@ -60,7 +60,7 @@ def _port(s, silicon=False):
     T = [torch.as_tensor(a) for a in s["args"]]
     kw = {}
     if silicon:
-        kw = dict(silicon=CV.silicon_from_numpy(s["sil"], "cpu"),
+        kw = dict(silicon=CV.silicon_from_numpy(s["sil"]),
                   si_draws=[torch.as_tensor(d) for d in s["draws"]])
     out = raychain.field_to_sensor(
         CV.telescope_from_numpy(s["tel"]),
@@ -111,7 +111,7 @@ def test_chain_gaps_separates_spider_edge_photons():
     bar and every other photon to 0.35 px."""
     from imsim_tpu_torch.convert import load_ccd_state
 
-    ctx = load_ccd_state().ctx
+    ctx = load_ccd_state(device="cpu").ctx
     n = 4
     # photon 0 sits 0.1 mm outside the edge of the vane at +0.4 m
     on_vane = (0.4 + 0.025 + 1e-4) / 2 ** 0.5
@@ -164,16 +164,28 @@ def test_chain_params_layout_matches_cuda_source():
 
 
 def test_chain_params_pack_the_visit(chain_inputs):
-    """chain_params packs the surface matrix, kinds and Newton steps of
-    every surface and the folded weather factors."""
+    """chain_params packs every surface's folded constants, kinds and
+    Newton steps and the folded weather factors."""
     s = chain_inputs
     tel = CV.telescope_from_numpy(s["tel"])
     ctx = CV.optics_context_from_numpy(s["octx"])
-    sil = CV.silicon_from_numpy(s["sil"], "cpu")
+    sil = CV.silicon_from_numpy(s["sil"])
     p = raychain.chain_params(tel, ctx, True, True, True, sil)
     S = len(tel.kinds)
     surf = np.frombuffer(p.surf, np.float32).reshape(raychain.MAX_SURF, -1)
-    assert (surf[:S] == tel.surf).all() and not surf[S:].any()
+    assert (surf[:S] == raychain.surface_block(tel)).all()
+    assert not surf[S:].any()
+    # the block, column by column, from the float64 surface matrix
+    m = tel.surf.astype(np.float64)
+    c, k1, coefs = m[:, 0], 1.0 + m[:, 1], m[:, 2:6]
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    want = np.concatenate(
+        [f32(c)[:, None], f32(k1)[:, None], f32(k1 * c * c)[:, None],
+         f32(c * c * k1 / 2)[:, None], f32(coefs),
+         f32(coefs * [2, 3, 4, 5]),
+         f32(np.where(m[:, 6] > 0, m[:, 6] ** 2, -1.0))[:, None],
+         f32(m[:, 7] ** 2)[:, None], f32(m[:, 8:20])], axis=1)
+    np.testing.assert_array_equal(surf[:S], want)
     assert list(p.kinds[:S]) == list(tel.kinds)
     assert list(p.newton[:S]) == [tel.newton_steps(i) for i in range(S)]
     # M1-M3 carry aspheric terms: 1 polish step + 2
@@ -181,3 +193,68 @@ def test_chain_params_pack_the_visit(chain_inputs):
     assert p.fused == 1 and p.n_surf == S
     t_c = ctx.temperature_k - 273.15
     assert np.isclose(p.air_f3, 1.0 + 0.003661 * t_c)
+
+
+def test_chain_flops_counts_the_bench_chain(chain_inputs):
+    """The per-photon operation count behind K2's bound, summed from the
+    `ops[stage] = n` notes of csrc/raychain.cu: one note per stage, and
+    the bench telescope (3 aspheric mirrors with 3 Newton steps, 8 lens
+    surfaces, the detector) is 2,871 operations fused, 110 fewer without
+    the silicon stage, 40 fewer without field rotation."""
+    import os
+
+    src = open(os.path.join(os.path.dirname(raychain.__file__), "..",
+                            "csrc", "raychain.cu")).read()
+    notes = [k for k, _ in re.findall(r"ops\[(\w+)\] = (\d+)", src)]
+    assert sorted(notes) == sorted(
+        ["dcr", "diffraction", "field_rotation", "entrance", "silica",
+         "to_local", "root", "newton", "asphere", "hit", "normal",
+         "normal_asphere", "mirror", "refract", "to_global", "pixels",
+         "slopes", "silicon"])
+    s = chain_inputs
+    tel = CV.telescope_from_numpy(s["tel"])
+    ctx = CV.optics_context_from_numpy(s["octx"])
+    sil = CV.silicon_from_numpy(s["sil"])
+    assert tel.kinds == (0, 0, 0, 1, 2, 1, 2, 1, 2, 1, 2, 3)
+    count = lambda *a: raychain.chain_flops(  # noqa: E731
+        raychain.chain_params(tel, ctx, *a))
+    assert count(True, True, True, sil) == 2871
+    assert count(True, True, True) == 2871 - 110
+    assert count(True, True, False, sil) == 2871 - 40
+    assert count(False, False, False) == 2871 - 110 - 40 - 56 - 38
+
+
+def test_chain_random_on_the_cpu_meets_the_bar():
+    """benchmarks/chain_random's CPU run: the wrapper takes the plain
+    twin, so both forms agree exactly and nothing lies beyond the bar."""
+    from imsim_tpu_torch.benchmarks import chain_random as CR
+
+    out = CR.main("cpu", n=4096, seed=2, log=lambda *_: None)
+    for form, r in out.items():
+        assert r["beyond_bar"] == [] and r["dxy_untied"] == 0.0, form
+        assert r["gaps"]["n_on"] > 1000 and r["ok_but_ties"], form
+
+
+def test_chain_random_lists_photons_beyond_the_bar():
+    """A photon moved 2 px off the twin's output, far from every spider
+    edge, is listed with its two nearest edges, not as a tie, and sets
+    the gap; the rest stay within the bar."""
+    from imsim_tpu_torch.benchmarks import chain_random as CR
+    from imsim_tpu_torch.convert import load_ccd_state
+    from imsim_tpu_torch.photons import diffraction as D
+
+    st = load_ccd_state(device="cpu")
+    args, _ = CR.photons(4096, 3, "cpu")
+    want = raychain.field_to_sensor(st.tel, st.ctx, *args)
+    x, y = want[0], want[1]
+    dist = D.spider_distance(args[2], args[3], args[5], st.ctx.latitude,
+                             st.ctx.bore_alt, st.ctx.bore_az)
+    ok = (want[-1] > 0) & (x > 0) & (x < st.ctx.det_nx) & (y > 0) \
+        & (y < st.ctx.det_ny) & (dist > 0.05)
+    i = int(torch.nonzero(ok)[0, 0])
+    got = [w.clone() for w in want]
+    got[0][i] += 2.0
+    rows, dxy_untied = CR.beyond_bar(want, got, st.ctx, args)
+    assert [r["photon"] for r in rows] == [i] and not rows[0]["tie"]
+    assert abs(rows[0]["dxy"] - 2.0) < 1e-3 and dxy_untied == rows[0]["dxy"]
+    assert 0.05 < rows[0]["edge1_m"] < rows[0]["edge2_m"]

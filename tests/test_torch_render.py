@@ -108,7 +108,7 @@ def test_render_ccd_pooled_matches_jax(corner_scene):
     tally = {}
     timg, _ = TPP.render_ccd_pooled(
         3, host, TPP.PoolingConfig(**kw),
-        CV.silicon_from_numpy(s["sil"], dev),
+        CV.silicon_from_numpy(s["sil"]),
         CV.telescope_from_numpy(s["tel"]),
         CV.optics_context_from_numpy(s["octx"]),
         CV.screens_from_numpy(s["screens"], dev),

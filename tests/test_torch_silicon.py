@@ -26,7 +26,7 @@ H, W = 200, 264   # not tile-aligned on purpose
 @pytest.fixture(scope="module")
 def sil():
     j = JS.SiliconParams.make(treering_model=TreeRings().get("R22_S11"))
-    return j, CV.silicon_from_numpy(j, "cpu")
+    return j, CV.silicon_from_numpy(j)
 
 
 def _taps(j):

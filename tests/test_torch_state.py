@@ -1,27 +1,120 @@
 """State carried across from the JAX package (imsim_tpu_torch.convert):
 the committed bench state equals a fresh export, loading it equals
 converting the JAX containers directly, and synthetic_scene reproduces
-bench.build_synthetic_host."""
+bench.build_synthetic_host.
+
+The exporter lives here, beside the JAX package it needs; the port only
+reads its output.  Where JAX is installed,
+
+    python tests/test_torch_state.py
+
+rewrites imsim_tpu_torch/data/bench_r22_s11.npz."""
 import ast
 import os
+import sys
 
-import numpy as np
-import pytest
-import torch
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
 
-from imsim_tpu.electronics.camera import get_camera
-from imsim_tpu.optics.wcs_factory import make_wcs_factory
-from imsim_tpu.photons.optics_ops import make_optics_context
-from imsim_tpu.psf.atmosphere import AtmConfig, second_kick_table
-from imsim_tpu.sensor.silicon import SiliconParams as JSilicon
-from imsim_tpu.sensor.treerings import TreeRings
-from imsim_tpu.utils.lookup import PolyCDF as JPoly
-from imsim_tpu_torch import convert as CV
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from imsim_tpu.electronics.camera import get_camera  # noqa: E402
+from imsim_tpu.image.photon_pooling import (PoolingConfig,  # noqa: E402
+                                            classify_objects, make_psf_mtf)
+from imsim_tpu.image.scene import DeviceScene as JScene  # noqa: E402
+from imsim_tpu.image.scene import SceneHost as JHost  # noqa: E402
+from imsim_tpu.optics.wcs_factory import make_wcs_factory  # noqa: E402
+from imsim_tpu.photons import profiles as JP  # noqa: E402
+from imsim_tpu.photons.optics_ops import make_optics_context  # noqa: E402
+from imsim_tpu.psf.atmosphere import (AtmConfig, make_screens,  # noqa: E402
+                                      second_kick_table, solve_r0_500)
+from imsim_tpu.sensor.silicon import SiliconParams as JSilicon  # noqa: E402
+from imsim_tpu.sensor.treerings import TreeRings  # noqa: E402
+from imsim_tpu.utils.lookup import PolyCDF as JPoly  # noqa: E402
+from imsim_tpu_torch import convert as CV  # noqa: E402
+from imsim_tpu_torch.image.scene import WL_CDF_K  # noqa: E402
 
 torch.set_num_threads(1)
 
 DEG = np.pi / 180
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# bench.py main()'s CCD: R22_S11 at pointing (30, -20) deg, mjd 60674.2,
+# r band, 1e5 objects
+_BENCH = dict(det_name="R22_S11", seed=0, n_obj=100_000,
+              total_photons=1.0e8, n_bright=24, atm_seed=42 + 271828,
+              fwhm=0.7)
+
+
+def export_ccd_state(path: str = CV.BENCH_STATE) -> dict:
+    """Write bench.py main()'s per-CCD state for R22_S11 to `path` (the
+    arrays `convert.load_ccd_state` reads).  Returns the arrays
+    written."""
+    B = _BENCH
+    fac = make_wcs_factory(30 * DEG, -20 * DEG, mjd=60674.2, band="r")
+    ccd = get_camera("LsstCamSim")[B["det_name"]]
+    nx, ny = ccd.bounds.width, ccd.bounds.height
+    wcs = fac.get_wcs(ccd)
+
+    def field_angles(x, y):
+        return fac.icrf_to_field(*wcs.xy_to_radec(x, y))
+
+    cols, flux = CV.bench_columns(B["seed"], B["n_obj"], B["total_photons"],
+                                  B["n_bright"], nx, ny, field_angles)
+    n_pad = int(2 ** np.ceil(np.log2(B["n_obj"])))
+
+    def pad(a, fill=0.0):
+        out = np.full(n_pad, fill, np.float32)
+        out[:B["n_obj"]] = a
+        return out
+
+    wl = np.linspace(552.0, 691.0, WL_CDF_K).astype(np.float32)
+    jscene = JScene.from_columns(
+        **{k: pad(v, 1.0 if k in ("p1", "p2", "mu") else 0.0)
+           for k, v in cols.items()},
+        wl_icdf=np.broadcast_to(wl, (n_pad, WL_CDF_K)))
+    jhost = JHost(scene=jscene, flux=flux, nominal_flux=flux,
+                  n_objects=B["n_obj"])
+    pcfg = PoolingConfig(fft_sb_thresh=2e5, fwhm=B["fwhm"], pixel_scale=0.2,
+                         noise_var=17_500.0 * 0.04)
+    modes = classify_objects(jhost, pcfg, make_psf_mtf(pcfg))
+
+    octx = make_optics_context(fac, ccd)
+    sil = JSilicon.make(treering_model=TreeRings().get(B["det_name"]))
+    atm = AtmConfig(fwhm=B["fwhm"])
+    sk_poly, _ = JPoly.fit(second_kick_table(atm, 622.0))
+    screens = make_screens(B["atm_seed"], atm)
+    airmass = 1.0 / max(np.sin(np.radians(atm.altitude_deg)), 0.1)
+    r0_500 = solve_r0_500(atm.fwhm, atm.L0) * airmass ** (-3.0 / 5.0)
+    exp_disk = JP.exp_disk_poly()
+
+    jtel = fac.telescope.for_detector(B["det_name"])
+    containers = dict(
+        tel=(jtel, ("z0", "c", "kappa", "coefs", "aper", "shift", "rot",
+                    "kinds")),
+        ctx=(octx, CV._CTX_F32 + CV._CTX_F64 + ("det_nx", "det_ny")),
+        sil=(sil, ("thickness_um", "pixel_um", "diffusion_um", "bf_kernel",
+                   "treering_center", "tr_waves", "tr_env", "tr_active")),
+        sk=(sk_poly, CV._POLY), exp=(exp_disk, CV._POLY),
+        scr=(screens, ("weights", "winds", "size", "scale", "t0")))
+    arrays = {f"{p}.{k}": np.asarray(getattr(obj, k))
+              for p, (obj, keys) in containers.items() for k in keys}
+    arrays.update({f"sersic.{k}": np.asarray(v)
+                   for k, v in zip(CV._SERSIC, JP.sersic_poly2d())})
+    arrays.update({
+        "scr.r0_500": np.float64(r0_500), "scr.L0": np.float64(atm.L0),
+        "scr.kcrit": np.float64(atm.kcrit),
+        "det_name": np.array(B["det_name"]), "nx": np.int32(nx),
+        "ny": np.int32(ny), "scene.seed": np.int64(B["seed"]),
+        "scene.total_photons": np.float64(B["total_photons"]),
+        "scene.n_bright": np.int32(B["n_bright"]),
+        "scene.thx": np.asarray(cols["x"], np.float32),
+        "scene.thy": np.asarray(cols["y"], np.float32),
+        "scene.modes": np.asarray(modes, np.int8)})
+    np.savez_compressed(path, **arrays)
+    return arrays
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +138,7 @@ def _bench_build_synthetic_host():
 
 
 def test_committed_state_equals_fresh_export(tmp_path):
-    fresh = CV.export_ccd_state(str(tmp_path / "state.npz"))
+    fresh = export_ccd_state(str(tmp_path / "state.npz"))
     with np.load(CV.BENCH_STATE) as z:
         assert sorted(z.files) == sorted(fresh)
         for k in z.files:
@@ -61,8 +154,8 @@ def test_load_equals_direct_conversion(visit):
     assert st.ctx == CV.optics_context_from_numpy(
         make_optics_context(fac, ccd))
     sil = CV.silicon_from_numpy(
-        JSilicon.make(treering_model=TreeRings().get("R22_S11")), "cpu")
-    assert torch.equal(st.silicon.bf_kernel, sil.bf_kernel)
+        JSilicon.make(treering_model=TreeRings().get("R22_S11")))
+    np.testing.assert_array_equal(st.silicon.bf_kernel, sil.bf_kernel)
     assert (st.silicon.tr_waves == sil.tr_waves).all()
     assert (st.silicon.tr_env == sil.tr_env).all()
     assert (st.silicon.treering_center, st.silicon.tr_active,
@@ -108,3 +201,8 @@ def test_synthetic_scene_drops_fft_objects_from_the_pool():
                                   st.thx)
     with pytest.raises(ValueError):
         CV.synthetic_scene(st, "cpu", n_obj=10)
+
+
+if __name__ == "__main__":
+    export_ccd_state()
+    print(f"wrote {CV.BENCH_STATE}")
