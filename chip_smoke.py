@@ -232,7 +232,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     rows.append(dict(
         name="stencil_pair", route="cuda",
         source="imsim_tpu_torch/csrc/stencil.cu",
-        replaces="imsim_tpu/ops/stencil.py:70",
+        replaces="imsim_tpu/ops/stencil.py:71",
         **{key: r3[key] for key in ("max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by")}))
     for row in rows:
@@ -379,12 +379,16 @@ def phase_probes(device, small: bool):
                                        "library_ms")}))
         log_kernel(report[-1], f", slowest body {r['slowest']}"
                    if "slowest" in r else "")
-    # P6's one-tap bodies go through the vector copy kernel, as P2 and P3
-    # do; the row above reports only the slowest body
+    # the row above reports only P6's slowest body; its one-tap bodies go
+    # through the vector copy kernel, as P2 and P3 do, and c and d through
+    # the row and column pattern kernels
     bodies = found["probe_mk"]["bodies"]
-    log("[kernels] probe_mk one-tap bodies: " + ", ".join(
-        f"{b} {bodies[b]['ms']:.4f} ms (plain twin "
-        f"{bodies[b]['plain_ms']:.4f} ms)" for b in ("a", "b")))
+    for label, names in (("one-tap bodies", ("a", "b")),
+                         ("row and column bodies", ("c", "d"))):
+        log(f"[kernels] probe_mk {label}: " + ", ".join(
+            f"{b} {bodies[b]['ms']:.4f} ms (bound {bodies[b]['bound_ms']:.4f}"
+            f" ms by {bodies[b]['bound_by']}, plain twin "
+            f"{bodies[b]['plain_ms']:.4f} ms)" for b in names))
     return report
 
 

@@ -37,7 +37,7 @@ def make_frame(device, h: int, w: int, k: int, th: int):
     zero-padded by R = k // 2 rows and columns, its width rounded up to
     128; dkf (2, k*k) standard normal, kept on the host (the kernels take
     the taps by value).  `th` is the TPU probes' row tile: h must be a
-    whole number of them, as there (the CUDA kernels tile 32 x 32)."""
+    whole number of them, as there (the CUDA kernels take any h)."""
     if h % th:
         raise ValueError(f"h={h} is not a multiple of the row tile {th}")
     R = k // 2

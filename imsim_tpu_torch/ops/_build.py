@@ -2,7 +2,7 @@
 
 All `csrc/*.cu` files compile with nvcc into one shared library with a
 plain C interface (no PyTorch headers: seconds, not minutes), loaded
-with ctypes.  The build runs at first use into `imsim_tpu_torch/_build/`
+with ctypes: one nvcc per source, all started together, then one link.  The build runs at first use into `imsim_tpu_torch/_build/`
 (listed in .gitignore), named by a hash of the sources so an edited
 kernel never loads a stale library.  Without nvcc the build raises: a
 CUDA tensor never falls back to a kernel's plain twin.
@@ -69,17 +69,37 @@ def build() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     t0 = time.time()
+    objs = {s: f"{tmp}.{os.path.basename(s)}.o" for s in srcs
+            if s.endswith(".cu")}
+    jobs = []
+    for s, obj in objs.items():
+        cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, s]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report = []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        report.append(out)
+        if proc.returncode != 0:
+            for _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs.values()]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs.values():
+        os.remove(obj)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib)
     BUILD_INFO["seconds"] = time.time() - t0
-    BUILD_INFO["ptxas"] = (res.stdout + res.stderr).strip()
+    BUILD_INFO["ptxas"] = "\n".join(report).strip()
     return lib
 
 

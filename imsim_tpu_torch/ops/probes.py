@@ -10,13 +10,17 @@ P1 doubles an (H, W) frame.  P2-P7 read the probes' zero-padded frame P
 (a tap with t = None reads P as it is) in each TPU body's own order;
 `body_taps` lists them.  The TPU bodies read taps through DMA'd VMEM
 slabs, unaligned slices and `pltpu.roll`; the rolls never wrap inside the
-output window, so each body is this window sum.  The CUDA kernels are
-csrc/probes.cu: a scale-copy kernel (P1), a vector copy kernel for the
-one-tap bodies (P2, P3, P6 a and b: one tap, one output) and a
-window-tap kernel for every other body, chosen inside the C entry point
-from the tap list; the plain twins are shifted-slice sums in the same
-order.  Each TPU kernel has its own launch counter (probe_p1 ..
-probe_p5, probe_mk, probe_mk2).
+output window, so each body is this window sum.  The plain twins are
+shifted-slice sums in the body's order.
+
+The CUDA kernels are csrc/probes.cu: a scale-copy kernel (P1), a vector
+copy kernel for the one-tap bodies (P2, P3, P6 a and b) and one kernel
+for each tap pattern of the other bodies (`tap_pattern`): the full k x k
+stencil (P4, P5, P6 e-h, P7), one row (P6 c) or one column (P6 d).  A
+pattern kernel sums its taps in the pattern's canonical order
+(`pattern_taps`), whatever the body's order; `window_pattern_plain` is
+that sum in PyTorch.  Each TPU kernel has its own launch counter
+(probe_p1 .. probe_p5, probe_mk, probe_mk2).
 
 The weights cross to the kernel by value, so a dkf on the card is copied
 to the host (a synchronisation) at every call; the probes keep it on the
@@ -115,37 +119,124 @@ def window_plain(body: str, dkf, P: torch.Tensor, k: int = None,
     return outs
 
 
-def _window_cuda(counter: str, body: str, dkf, P: torch.Tensor, k: int,
-                 w: int) -> list:
-    """Launch the window-tap kernel for one body."""
+# the tap patterns of csrc/probes.cu, in the C entry point's numbering
+PATTERNS = ("full", "row", "column")
+
+
+def pattern_taps(pattern: str, k: int) -> list:
+    """(di, dj) of each tap of a pattern in its canonical order, the
+    order in which the kernel sums them: full (i, j) row-major; row
+    (0, j); column (i, k // 2)."""
+    if pattern == "full":
+        return [(i, j) for i in range(k) for j in range(k)]
+    if pattern == "row":
+        return [(0, j) for j in range(k)]
+    if pattern == "column":
+        return [(i, k // 2) for i in range(k)]
+    raise ValueError(f"unknown tap pattern {pattern!r}")
+
+
+def tap_pattern(taps, k: int):
+    """(pattern, cols) of a list of weighted taps (di, dj, t) that are
+    exactly one pattern's taps, each once, for an odd k >= 3: cols[n] is
+    the weight column t of the pattern's n-th tap.  Raises ValueError for
+    any other list (a single tap, an unweighted tap, a repeat, a set that
+    is no pattern's)."""
+    pos = {}
+    for di, dj, t in taps:
+        if t is None or (di, dj) in pos:
+            raise ValueError(f"taps {taps}: unweighted or repeated tap")
+        pos[(di, dj)] = t
+    if k >= 3 and k % 2:
+        for pattern in PATTERNS:
+            canon = pattern_taps(pattern, k)
+            if len(canon) == len(pos) and set(canon) == set(pos):
+                return pattern, [pos[p] for p in canon]
+    raise ValueError(f"taps {taps} match no pattern of {PATTERNS} for "
+                     f"k={k}")
+
+
+def body_pattern(body: str, dkf, k: int):
+    """(pattern, weights) of a probe body with several taps: weights
+    (nout, n) float32, output o's weight of the pattern's n-th tap."""
+    groups, nout = body_taps(body, k)
+    pattern, cols = tap_pattern([tap for g in groups for tap in g], k)
+    dk = np.asarray(dkf, np.float32)
+    if dk.ndim != 2 or dk.shape[0] < nout or dk.shape[1] != k * k:
+        raise ValueError(f"dkf {dk.shape}: expected ({nout}+, {k * k})")
+    return pattern, np.ascontiguousarray(dk[:nout][:, cols])
+
+
+def window_pattern_plain(pattern: str, weights, P: torch.Tensor, k: int,
+                         w: int = None) -> list:
+    """Plain twin of the pattern kernels: for each row of weights, the
+    shifted-slice sum over the pattern's taps in canonical order."""
+    h, w = _frame(P, k, w)
+    outs = []
+    for wo in np.asarray(weights, np.float32):
+        acc = None
+        for (di, dj), wt in zip(pattern_taps(pattern, k), wo):
+            term = float(wt) * P[di:di + h, dj:dj + w]
+            acc = term if acc is None else acc + term
+        outs.append(acc)
+    return outs
+
+
+def window_pattern_cuda(counter: str, pattern: str, weights,
+                        P: torch.Tensor, k: int, w: int = None) -> list:
+    """Launch the kernel of `pattern` with weights (nout, n) in its
+    canonical order; returns the nout outputs (h, w)."""
     _build.require(P, "P")
     h, w = _frame(P, k, w)
-    groups, nout = body_taps(body, k)
-    taps = [tap for g in groups for tap in g]
-    dk = None if dkf is None else np.ascontiguousarray(
-        dkf.detach().cpu().numpy(), np.float32)
-    if dk is not None and (dk.ndim != 2 or dk.shape[0] < nout
-                           or dk.shape[1] != k * k):
-        raise ValueError(f"dkf {dk.shape}: expected ({nout}+, {k * k})")
-    di = np.asarray([t[0] for t in taps], np.int32)
-    dj = np.asarray([t[1] for t in taps], np.int32)
-    wts = np.zeros((2, len(taps)), np.float32)
-    for o in range(nout):
-        wts[o] = [1.0 if t[2] is None else dk[o, t[2]] for t in taps]
-    lib = _build.library()
-    fn = lib.imsim_window_taps
+    wts = np.ascontiguousarray(weights, np.float32)
+    n = len(pattern_taps(pattern, k))
+    if wts.ndim != 2 or wts.shape[0] not in (1, 2) or wts.shape[1] != n:
+        raise ValueError(f"weights {wts.shape}: expected (1 or 2, {n})")
+    fn = _build.library().imsim_window_taps
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p] * 5
+        ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     outs = [torch.empty((h, w), dtype=torch.float32, device=P.device)
-            for _ in range(nout)]
+            for _ in range(wts.shape[0])]
     status = fn(P.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(),
-                P.shape[0], P.shape[1], h, w, k, len(taps), nout,
-                di.ctypes.data, dj.ctypes.data, wts[0].ctypes.data,
-                wts[1].ctypes.data, _build.stream_ptr(P))
+                P.shape[0], P.shape[1], h, w, k, PATTERNS.index(pattern),
+                len(outs), wts[0].ctypes.data, wts[-1].ctypes.data,
+                _build.stream_ptr(P))
     _build.check(status, counter)
     _build.count_launch(counter)
     return outs
+
+
+def _window_copy_cuda(counter: str, tap, dkf, P: torch.Tensor, k: int,
+                      w: int) -> torch.Tensor:
+    """Launch the vector copy kernel for a one-tap body (di, dj, t)."""
+    _build.require(P, "P")
+    h, w = _frame(P, k, w)
+    di, dj, t = tap
+    wt = 1.0 if t is None else float(np.asarray(dkf, np.float32)[0, t])
+    fn = _build.library().imsim_window_copy
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((h, w), dtype=torch.float32, device=P.device)
+    status = fn(P.data_ptr(), out.data_ptr(), P.shape[0], P.shape[1], h, w,
+                di, dj, wt, _build.stream_ptr(P))
+    _build.check(status, counter)
+    _build.count_launch(counter)
+    return out
+
+
+def _window_cuda(counter: str, body: str, dkf, P: torch.Tensor, k: int,
+                 w: int) -> list:
+    """Launch a body's kernel: the copy kernel for one tap with one
+    output, else its pattern's kernel."""
+    groups, nout = body_taps(body, k)
+    taps = [tap for g in groups for tap in g]
+    dk = None if dkf is None else dkf.detach().cpu().numpy()
+    if len(taps) == 1 and nout == 1:
+        return [_window_copy_cuda(counter, taps[0], dk, P, k, w)]
+    pattern, weights = body_pattern(body, dk, k)
+    return window_pattern_cuda(counter, pattern, weights, P, k, w)
 
 
 def _window(counter: str, body: str, dkf, P: torch.Tensor, k: int,

@@ -7,10 +7,10 @@ The pooled row materialization scatters each object's parameter delta
 into the two-level slot layout d (C, pe, mp): plane beta, lane q holds
 photon ordinal j = pe*q + mu(beta) (photon_pooling.member_offsets).  The
 per-photon rows are the prefix sum of d in ORDINAL order.  The CUDA
-kernel (csrc/scanrows.cu) walks that order directly; the plain twin
-permutes planes into ordinal order, runs one cumsum and permutes back.
-K4 is the same CUDA kernel with one plane; its plain twin is
-torch.cumsum along axis 1.
+kernel (csrc/scanrows.cu, three passes) walks that order directly; the
+plain twin permutes planes into ordinal order, runs one cumsum and
+permutes back.  K4 is a one-pass scan with decoupled look-back in the
+same source; its plain twin is torch.cumsum along axis 1.
 """
 from __future__ import annotations
 
@@ -106,7 +106,7 @@ def scan_slot_prefix(d: torch.Tensor, pair: int, share: int) -> torch.Tensor:
 
 
 def _scan_scratch(C: int, N: int, device) -> torch.Tensor:
-    """Per-tile totals of the three-pass scan: (C, ceil(N / tile))."""
+    """Per-tile totals of K1's three passes: (C, ceil(N / tile))."""
     ntiles = max(1, -(-N // _build.library().imsim_scan_tile_columns()))
     return torch.empty((C, ntiles), dtype=torch.float32, device=device)
 
@@ -117,16 +117,20 @@ def scan_lanes_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def scan_lanes_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on x (C, N) float32 (any N)."""
+    """Launch the look-back scan kernel on x (C, N) float32 (any N)."""
     _build.require(x, "x")
     C, N = x.shape
-    fn = _build.library().imsim_scan_lanes
+    lib = _build.library()
+    fn = lib.imsim_scan_lanes
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(x)
-    scratch = _scan_scratch(C, N, x.device)
-    status = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, N,
+    # one status word per tile, then the tile counter: zeroed on the
+    # stream for every call, so no two calls share them
+    ntiles = C * -(-N // lib.imsim_scan_lanes_tile_columns())
+    words = torch.zeros(ntiles + 1, dtype=torch.int64, device=x.device)
+    status = fn(x.data_ptr(), out.data_ptr(), words.data_ptr(), C, N,
                 _build.stream_ptr(x))
     _build.check(status, "scan_lanes")
     _build.count_launch("scan_lanes")

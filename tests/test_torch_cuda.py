@@ -3,6 +3,7 @@
 These need an NVIDIA card (marker `cuda`); they skip elsewhere.  On the
 card: python -m pytest tests/test_torch_cuda.py -q -p no:randomly
 (chip_smoke.py runs the same comparisons at the main path's shapes)."""
+import ctypes
 import dataclasses
 import functools
 
@@ -231,9 +232,9 @@ def test_kernels_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("C,N,block", [(3, 5000, 1000), (5, 3072, 1024),
                                        (24, 1 << 20, 16_384)])
 def test_scan_lanes_kernel(cuda, C, N, block):
-    """K4 at row lengths with a ragged CUDA tile (5000, 3072 are not
-    multiples of the 1024-column tile) and whole tiles: f32 prefix sums of
-    0.01-scale deltas, 2000 nonzero per row -> 1e-5 absolute."""
+    """K4 at row lengths shorter than its 16,384-column tile (one ragged
+    tile) and of whole tiles: f32 prefix sums of 0.01-scale deltas, 2000
+    nonzero per row -> 1e-5 absolute."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x = torch.zeros((C, N), device=cuda)
     idx = torch.randint(0, N, (2000,), generator=g, device=cuda)
@@ -248,6 +249,73 @@ def test_scan_lanes_kernel(cuda, C, N, block):
         scanrows.scan_lanes(x[:, :N - 1].contiguous(), block=block)
 
 
+# K4's tile: 16,384 columns.  Long rows: 2,048 whole tiles, and 2,000
+# with a ragged, odd tail (N % 4 != 0: the scalar path)
+K4_TILE = 16_384
+LONG_ROWS = (K4_TILE * 2048, K4_TILE * 1999 + 1235)
+
+
+def _row_bar(want, n_obj):
+    """sqrt(n_obj) float32 ulps of each row's scale (probe_rows' bar)."""
+    scale = want.abs().amax(dim=1).cpu().numpy().astype(np.float32)
+    return np.sqrt(n_obj) * np.spacing(scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 24])
+@pytest.mark.parametrize("N", LONG_ROWS)
+def test_scan_lanes_long_lookback_chain(cuda, C, N):
+    """K4 over rows of 2,000+ tiles (a long look-back chain): 2000
+    standard normal deltas per row scattered over the row, each row
+    within sqrt(2000) ulps of its scale of torch.cumsum."""
+    g = torch.Generator(device=cuda).manual_seed(N % 1000 + C)
+    x = torch.zeros((C, N), device=cuda)
+    idx = torch.randint(0, N, (2000,), generator=g, device=cuda)
+    x[:, idx] = torch.randn((C, 2000), generator=g, device=cuda)
+    n0 = _build.LAUNCHES["scan_lanes"]
+    got = scanrows.scan_lanes_cuda(x)
+    want = scanrows.scan_lanes_plain(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["scan_lanes"] == n0 + 1
+    gap = (got - want).abs().amax(dim=1).cpu().numpy()
+    assert (gap <= _row_bar(want, 2000)).all(), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 24])
+@pytest.mark.parametrize("N", [K4_TILE * 1024, K4_TILE * 1024 - 3])
+def test_scan_lanes_constant_rows_exact(cuda, C, N):
+    """Constant rows of small integers over 1,024 tiles (whole, and a
+    ragged odd tail): every partial sum is an integer of at most 2^24,
+    exact in any order, so K4 equals the prefix bitwise."""
+    x = (torch.arange(C, device=cuda, dtype=torch.float32)[:, None] % 2
+         + 1).expand(C, N).contiguous()
+    got = scanrows.scan_lanes_cuda(x)
+    want = x[:, :1] * torch.arange(1, N + 1, device=cuda,
+                                   dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_scan_lanes_back_to_back_and_two_streams(cuda):
+    """Calls that overlap share no tile state: two calls back to back on
+    one stream, then two on two streams, each on its own constant rows
+    (exact prefixes), all equal to their prefixes bitwise."""
+    C, N = 3, K4_TILE * 150 + 4
+    xs = [torch.full((C, N), float(v), device=cuda) for v in (1, 2, 3, 4)]
+    ramp = torch.arange(1, N + 1, device=cuda, dtype=torch.float32)
+    got = [scanrows.scan_lanes_cuda(xs[0]), scanrows.scan_lanes_cuda(xs[1])]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s, x in zip(streams, xs[2:]):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got.append(scanrows.scan_lanes_cuda(x))
+    torch.cuda.synchronize()
+    for v, out in zip((1, 2, 3, 4), got):
+        assert torch.equal(out, (v * ramp).expand(C, N)), v
+
+
 def _outputs(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -255,7 +323,7 @@ def _outputs(x):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,h,w,th", [(9, 256, 384, 128), (3, 200, 300, 8)])
 def test_probe_kernels(cuda, k, h, w, th):
-    """P1-P7 against their plain twins, on whole and ragged 32 x 32 tiles:
+    """P1-P7 against their plain twins, on whole and ragged 64 x 64 tiles:
     the copies and one-tap windows exact, the stencils within 1e-5 of
     max |out| (f32 sums of k^2 terms in the same order, FMA-contracted),
     one launch on each kernel's own counter per call."""
@@ -360,3 +428,75 @@ def test_probe_kernels_reject_bad_inputs(cuda):
         probes.probe_mk("z", dkf, P)
     with pytest.raises(ValueError):
         probes.probe_copy2(torch.zeros(9, device=cuda)[1:])
+
+
+def _pattern_weights(pattern, k, nout, seed):
+    rng = np.random.default_rng(seed)
+    n = len(probes.pattern_taps(pattern, k))
+    return rng.normal(size=(nout, n)).astype(np.float32)
+
+
+# frames (h, w, Wp, offset of P in floats): 16-byte loads and stores on
+# ragged tiles; w % 4 != 0 (scalar stores); P at a 4-byte offset (scalar
+# loads); Wp % 4 != 0; rows of two 1,024-column blocks; one output row
+PATTERN_FRAMES = ((133, 200, 256, 0), (133, 203, 256, 0), (70, 200, 256, 1),
+                  (70, 201, 213, 0), (20, 1500, 1512, 0), (1, 9, 24, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nout", [1, 2])
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 11])
+@pytest.mark.parametrize("pattern", probes.PATTERNS)
+def test_window_pattern_kernels(cuda, pattern, k, nout):
+    """Each pattern kernel (full, row, column) for every k and both
+    output counts, on the frames above: within 1e-5 of max |out| of the
+    canonical-order twin (the same FMA order), one launch per call."""
+    wts = _pattern_weights(pattern, k, nout, seed=10 * k + nout)
+    for h, w, wp, offset in PATTERN_FRAMES:
+        P = _signed_frame(cuda, h + k - 1, wp, offset, seed=h + wp + k)
+        n0 = _build.LAUNCHES["probe_mk"]
+        got = probes.window_pattern_cuda("probe_mk", pattern, wts, P, k, w)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["probe_mk"] == n0 + 1
+        want = probes.window_pattern_plain(pattern, wts, P, k, w)
+        assert [tuple(a.shape) for a in got] == [(h, w)] * nout
+        assert _stencil_gap(got, want) <= 1e-5, (h, w, wp, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 9])
+@pytest.mark.parametrize("body", ["h", "h2", "h3"])
+def test_column_major_bodies_within_bar(cuda, body, k):
+    """The column-major bodies are summed by the kernel in row-major
+    order: still within 1e-5 of max |out| of their column-major twins."""
+    _, P, dkf = make_frame(cuda, 128, 256, k, 128)
+    kern, plain = ((probes.probe_mk, probes.probe_mk_plain) if body == "h"
+                   else (probes.probe_mk2, probes.probe_mk2_plain))
+    got = _outputs(kern(body, dkf, P, 256))
+    want = _outputs(plain(body, dkf, P, 256))
+    torch.cuda.synchronize()
+    assert _stencil_gap(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_taps_refuse_a_tap_list_of_no_pattern(cuda, monkeypatch):
+    """A body whose taps are no pattern's is refused before any launch,
+    and the C entry point refuses a pattern number it does not know."""
+    _, P, dkf = make_frame(cuda, 128, 128, 9, 128)
+    full = [(i, j, 9 * i + j) for i in range(9) for j in range(9)]
+    monkeypatch.setattr(probes, "body_taps",
+                        lambda body, k: ([full[:-1]], 1))
+    n0 = _build.LAUNCHES["probe_p4"]
+    with pytest.raises(ValueError):
+        probes.probe_stencil1(dkf, P)
+    assert _build.LAUNCHES["probe_p4"] == n0
+    out = torch.empty((128, 128), device=cuda)
+    w0 = np.ones(81, np.float32)
+    fn = _build.library().imsim_window_taps
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    status = fn(P.data_ptr(), out.data_ptr(), out.data_ptr(), P.shape[0],
+                P.shape[1], 128, 128, 9, len(probes.PATTERNS), 1,
+                w0.ctypes.data, w0.ctypes.data, _build.stream_ptr(P))
+    assert status != 0

@@ -192,6 +192,72 @@ def test_other_bodies_have_several_taps():
         assert sum(len(g) for g in groups) > 1, body
 
 
+# every other body and the pattern kernel of csrc/probes.cu it takes
+PATTERN_OF = {"p4": "full", "p5": "full", "c": "row", "d": "column",
+              "e": "full", "f": "full", "g": "full", "h": "full",
+              "i": "full", "h2": "full", "h3": "full"}
+
+
+@pytest.mark.parametrize("k", [3, 5, 9])
+@pytest.mark.parametrize("body", list(PATTERN_OF))
+def test_body_pattern_weights_are_the_body_taps(body, k):
+    """A body's pattern and canonical weights hold the body's own taps:
+    for each output, the multiset {(di, dj, dkf[o, t])} of body_taps,
+    so the kernel sums the same products (distinct random weights, so a
+    misplaced one shows)."""
+    rng = np.random.default_rng(k)
+    dkf = rng.normal(size=(2, k * k)).astype(np.float32)
+    groups, nout = TP.body_taps(body, k)
+    pattern, weights = TP.body_pattern(body, dkf, k)
+    assert pattern == PATTERN_OF[body]
+    canon = TP.pattern_taps(pattern, k)
+    assert weights.shape == (nout, len(canon))
+    for o in range(nout):
+        want = sorted((di, dj, float(dkf[o, t]))
+                      for g in groups for di, dj, t in g)
+        got = sorted((di, dj, float(wt))
+                     for (di, dj), wt in zip(canon, weights[o]))
+        assert got == want
+
+
+@pytest.mark.parametrize("k", [3, 5, 9])
+@pytest.mark.parametrize("body", list(PATTERN_OF))
+def test_canonical_order_sum_matches_plain_twin(body, k):
+    """The shifted-slice sum in the pattern's canonical order (what the
+    pattern kernel computes; window_pattern_plain) equals the body's
+    plain twin, which sums in the body's own order, within 1e-5 of max
+    |out|: k^2 float32 terms in another order."""
+    rng = np.random.default_rng(100 + k)
+    h, w = 37, 50
+    P = torch.as_tensor(rng.uniform(0, 1e5, (h + k - 1, w + k + 5))
+                        .astype(np.float32))
+    dkf = rng.normal(size=(2, k * k)).astype(np.float32)
+    pattern, weights = TP.body_pattern(body, dkf, k)
+    got = TP.window_pattern_plain(pattern, weights, P, k, w)
+    want = TP.window_plain(body, torch.as_tensor(dkf), P, k, w)
+    assert len(got) == len(want)
+    scale = max(float(b.abs().max()) for b in want)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("taps,k", [
+    ([(0, 0, 0), (0, 1, 1)], 9),                         # two taps
+    ([(0, j, j) for j in range(8)], 9),                  # a row short of one
+    ([(1, j, j) for j in range(9)], 9),                  # row 1, not row 0
+    ([(i, 3, i) for i in range(9)], 9),                  # column 3, not R
+    ([(0, j, j) for j in range(9)] + [(0, 0, 0)], 9),    # a repeated tap
+    ([(0, j, None) for j in range(9)], 9),               # unweighted taps
+    ([(i, j, 2 * i + j) for i in range(2) for j in range(2)], 2),  # even k
+    ([(1, 1, 0)], 1),                                    # one tap
+])
+def test_tap_pattern_refuses_other_tap_lists(taps, k):
+    """A tap list that is no pattern's is refused (there is no runtime
+    tap-list kernel to take it)."""
+    with pytest.raises(ValueError):
+        TP.tap_pattern(taps, k)
+
+
 @pytest.mark.parametrize("body", list(ONE_TAP))
 def test_one_tap_bodies_bitwise(jax_probes, frame, body):
     """A one-tap body has one tap and one output (what sends it to the
