@@ -16,8 +16,17 @@ ok line is never printed):
      whichever is larger) and, where one PyTorch call computes the same
      function, that call's time (K3: one float32 conv2d, first held to
      1e-5 of max |out| of the twin);
-  4. the slice: render_ccd_pooled on that workload, cold and warm, with
-     launch counts, peak memory, charge accounting and landed fraction;
+  4. the whole bench CCD, cold and warm: render_ccd_pooled with the FFT
+     branch (the 17 bright stars in one Fourier synthesis, with
+     diffraction spikes at the full well), the sky and its noise, and the
+     readout chain to (16, 2048, 576) raw amps; per stage the wall time
+     (synchronized), peak device memory and launch counts (K1 = K2 = 6,
+     K3 = 24 on the render; the FFT, sky and readout stages run plain
+     PyTorch and launch none of the hand-written kernels), and gates
+     (a)-(f) on the charge, the FFT field, the spikes, the FFT noise,
+     the sky and the readout's bias; then the galaxy-bucket FFT path on
+     the eight brightest galaxies, its noiseless stamps held to the same
+     call on the CPU;
   5. the probes: the three on-chip probe paths at their own sizes
      (imsim_tpu_torch.benchmarks.probe_rows at 24 x 16,777,216,
      probe_pallas and probe_pallas2 on 4096^2 frames with k = 9), each
@@ -115,7 +124,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     rows = []
 
     # ---- K1 at batch 0's slot layout -----------------------------------
-    modes = PP.classify_objects(host, cfg)
+    modes = PP.classify_objects(host, cfg, PP.make_psf_mtf(cfg))
     cum, total, nb, N = PP.pooled_plan(host, modes, cfg)
     pair, share = cfg.pupil_pairing, cfg.screen_share
     pe = pair * share
@@ -240,63 +249,252 @@ def phase_kernels(device, state, host, cfg, ctx):
     return rows, nb
 
 
-def phase_slice(device, state, host, cfg, ctx, nb):
-    """render_ccd_pooled cold then warm; launch counts from each run."""
+def _stage(timer, name, fn, expect):
+    """Run one stage with the counts set to 0 just before it: (result,
+    wall s, peak device memory GiB, launches); the launches must equal
+    `expect` on the card (none on the CPU)."""
+    import torch
+
+    from imsim_tpu_torch.ops import _build
+
+    if timer.cuda:
+        torch.cuda.reset_peak_memory_stats()
+    timer.sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    timer.sync()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = expect if timer.cuda else {k: 0 for k in expect}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if timer.cuda \
+        else float("nan")
+    return out, wall, peak, launches
+
+
+# gate (b)'s floor; the JAX package's own gap at the bench's Npad (8192),
+# field sum over summed realized - 1, is 1.128e-4 (tests/test_torch_fft.py
+# run as a script, on the CPU): the bar is max(1e-3, 2 x that)
+FFT_GAP_JAX = 1.128e-4
+FFT_BAR = max(1e-3, 2 * FFT_GAP_JAX)
+
+
+def _check(ok: bool, what: str):
+    if not ok:
+        raise AssertionError(what)
+
+
+def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
+    """The whole bench CCD cold then warm (render with the FFT branch and
+    spikes, sky and noise, readout), its gates, and the galaxy-bucket
+    FFT path.  Returns the render's launch counts of the cold run."""
+    import numpy as np
     import torch
 
     from imsim_tpu_torch.benchmarks._util import Timer
-    from imsim_tpu_torch.image.photon_pooling import render_ccd_pooled
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.ccd_render import (add_sky_and_noise,
+                                                  sky_expectation)
+    from imsim_tpu_torch.image.diffraction_fft import spike_kernel
     from imsim_tpu_torch.ops import _build
     from imsim_tpu_torch.psf.atmosphere import make_screens
     from imsim_tpu_torch.utils.rng import ATM_SEED_OFFSET, stream
 
     timer = Timer(device)
+    ro = state.readout
+    H, W = cfg.ysize, cfg.xsize
     screens = make_screens(state.screen_spec, device,
                            gen=stream(42 + ATM_SEED_OFFSET, "screens",
                                       device=device))
-    # the render launches K1-K3 and none of the probes' kernels
-    expect = dict({k: 0 for k in _build.LAUNCHES}, scan_slot_prefix=nb,
-                  field_to_sensor=nb, stencil_pair=nb * cfg.nsub)
+    t0 = time.perf_counter()
+    kern = spike_kernel(622.0, 0.2, alpha_deg=45.0, rot_smear_deg=0.1,
+                        device=device)
+    spikes = dict(kernel=kern, sat=ro.full_well)
+    frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
+    log(f"[ccd] spike kernel {kern.shape[0]}x{kern.shape[1]}, calibrated "
+        f"spike fraction {frac:.5f} ({time.perf_counter() - t0:.2f} s), "
+        f"saturation at the full well {ro.full_well:.0f} e-")
+    none = {k: 0 for k in _build.LAUNCHES}
+    expect = dict(none, scan_slot_prefix=nb, field_to_sensor=nb,
+                  stencil_pair=nb * cfg.nsub)
+    grad = (0.0, 0.0, 1.0)
+
+    def frame(eimage):
+        # the rehearsal's 512 x 512 window is read out in the corner of
+        # a full E2V frame (the amp geometry is the vendor's)
+        if eimage.shape == (state.ny, state.nx):
+            return eimage
+        full = torch.zeros((state.ny, state.nx), device=device)
+        full[:H, :W] = eimage
+        return full
+
     result = {}
     for label in ("cold", "warm"):
         tally = {}
-        if timer.cuda:
-            torch.cuda.reset_peak_memory_stats()
-        timer.sync()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        image, _ = render_ccd_pooled(
-            0, host, cfg, state.silicon, state.tel, ctx, screens,
-            state.sk_table, profiles=state.profiles, tally=tally)
-        timer.sync()
-        wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        want = expect if timer.cuda else {k: 0 for k in expect}
-        if launches != want:
-            raise AssertionError(f"launch counts {launches} != {want}")
-        peak = torch.cuda.max_memory_allocated() / 2**30 \
-            if timer.cuda else float("nan")
-        if tuple(image.shape) != (cfg.ysize, cfg.xsize) \
-                or not bool(torch.isfinite(image).all()):
-            raise AssertionError("image is not finite / has the wrong shape")
-        img_sum = float(image.sum(dtype=torch.float64))
+        (image, modes, realized), t_r, m_r, l_r = _stage(
+            timer, "render", lambda: PP.render_ccd_pooled(
+                0, host, cfg, state.silicon, state.tel, ctx, screens,
+                state.sk_table, profiles=state.profiles, spikes=spikes,
+                tally=tally), expect)
+        eimage, t_s, m_s, _ = _stage(
+            timer, "sky", lambda: add_sky_and_noise(
+                stream(0, "sky", device=device), image, state.sky_level,
+                grad, state.vig_coarse, cfg.pixel_scale,
+                vig_step=state.vig_step), none)
+        raw, t_o, m_o, _ = _stage(
+            timer, "readout", lambda: ro.chain(
+                stream(0, "readout", device=device), frame(eimage),
+                cfg.exptime), none)
+        log(f"[ccd] {label}: render {t_r:.3f} s ({m_r:.2f} GiB peak, "
+            f"launches {l_r}), sky {t_s:.3f} s ({m_s:.2f} GiB), readout "
+            f"{t_o:.3f} s ({m_o:.2f} GiB); whole CCD {t_r + t_s + t_o:.3f} s")
+        n_fft = int((modes == PP.FFT).sum())
+        _check((n_fft > 0) if small
+               else n_fft == int((state.modes == PP.FFT).sum()),
+               f"{n_fft} FFT-mode objects")
+
+        # (a) the pooled charge: the image less the FFT pass's charge
+        # is the pooled flux binned in frame
+        fft_sum = float(tally["fft"])
+        pooled_img = float(image.sum(dtype=torch.float64)) - fft_sum
         in_frame = float(tally["in_frame"])
         pooled = float(tally["pooled"])
-        rel = abs(img_sum - in_frame) / max(in_frame, 1.0)
+        rel = abs(pooled_img - in_frame) / max(in_frame, 1.0)
         landed = in_frame / pooled
-        log(f"[slice] {label}: {wall:.3f} s wall, peak device memory "
-            f"{peak:.2f} GiB, launches {launches}")
-        log(f"[slice] {label}: pooled photons {pooled:.0f}, in-frame flux "
-            f"{in_frame:.1f}, image sum {img_sum:.1f} (rel gap {rel:.3g} "
-            f"<= 1e-4), landed fraction {landed:.6f} (> 0.8)")
-        if rel > 1e-4 or landed <= 0.8:
-            raise AssertionError("charge accounting or landed fraction "
-                                 "out of bounds")
+        log(f"[ccd] {label} (a): {n_fft} FFT objects; pooled photons "
+            f"{pooled:.0f}, in-frame flux {in_frame:.1f}, image sum less "
+            f"the FFT charge {pooled_img:.1f} (rel gap {rel:.3g} <= 1e-4), "
+            f"landed fraction {landed:.6f} (> 0.8)")
+        _check(rel <= 1e-4 and landed > 0.8,
+               "charge accounting or landed fraction out of bounds")
         if label == "cold":
-            result = dict(launches=launches, wall_cold=wall)
+            gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac,
+                                   fft_sum)
+            result = dict(launches=l_r, wall_cold=t_r + t_s + t_o)
         else:
-            result["wall_warm"] = wall
+            result.update(wall_warm=t_r + t_s + t_o, render=t_r, sky=t_s,
+                          readout=t_o)
+        # (d) the FFT noise: the added charge about the spiked field
+        vis_sum = gates_fft["spiked_sum"]
+        log(f"[ccd] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
+            f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
+            f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
+        _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
+               "FFT noise out of bounds")
+
+        # (e) the sky: the mean added charge and the residual's variance
+        sky = sky_expectation((H, W), state.sky_level, grad,
+                              state.vig_coarse, cfg.pixel_scale,
+                              state.vig_step, device=device)
+        res = (eimage - image - sky).double()
+        n_pix = H * W
+        sky_mean = float(sky.mean(dtype=torch.float64))
+        res_mean = float(res.mean())
+        res_var = float(res.var())
+        want_var = sky_mean + 1.0 / 12
+        log(f"[ccd] {label} (e): sky map mean {sky_mean:.3f} e-/px; added "
+            f"minus map {res_mean:.4f} (<= 5 sigma = "
+            f"{5 * np.sqrt(want_var / n_pix):.4f}); residual variance "
+            f"{res_var:.3f} vs map mean + 1/12 = {want_var:.3f} "
+            f"(rel {res_var / want_var - 1:.4f}, bar 0.02)")
+        _check(abs(res_mean) <= 5 * np.sqrt(want_var / n_pix)
+               and abs(res_var / want_var - 1) <= 0.02,
+               "sky noise out of bounds")
+        del res, sky
+
+        # (f) the readout: finite raw amps; prescan medians at the bias
+        pre = raw[:, :2002, :10].reshape(raw.shape[0], -1)
+        med = pre.median(dim=1).values.cpu().numpy()
+        gap = np.abs(med - ro.bias_levels.cpu().numpy())
+        log(f"[ccd] {label} (f): raw amps {tuple(raw.shape)}, prescan "
+            f"median - bias: max {gap.max():.3f} ADU (<= 0.5)")
+        _check(tuple(raw.shape) == (16, 2048, 576)
+               and bool(torch.isfinite(raw).all()) and gap.max() <= 0.5,
+               "raw amps not finite, of the wrong shape or off their bias")
+        del image, eimage, raw
+
+    _galaxy_buckets(device, host, cfg, spikes, 2 if small else 8)
     return result
+
+
+def _fft_gates(device, host, modes, cfg, spikes, frac, fft_sum):
+    """Gates (b) and (c) on the star field's noiseless synthesis with the
+    render's inputs; returns the spiked field's sum for gate (d)."""
+    import torch
+
+    from imsim_tpu_torch.image import fft_render as F
+    from imsim_tpu_torch.image import photon_pooling as PP
+
+    H, W = cfg.ysize, cfg.xsize
+    psf = PP.make_psf_mtf(cfg)
+    stars, _ = PP.fft_plan(host, modes, cfg, psf, spikes)
+    a = stars.args(device)
+    field, realized = F.star_frame(*a[:5], stars.Npad, H, W, stars.pad,
+                                   cfg.pixel_scale)
+    p, m = stars.pad, stars.margin
+    vis0 = float(field[p:p + H, p:p + W].sum(dtype=torch.float64))
+    real = float(realized.sum(dtype=torch.float64))
+    rel = vis0 / real - 1.0
+    log(f"[ccd] (b): {len(stars.ids)} stars, Npad {stars.Npad}, pad {p}; "
+        f"noiseless field without spikes {vis0:.1f} vs sum realized "
+        f"{real:.1f}: rel gap {rel:.4g} (bar {FFT_BAR:g}: max(1e-3, 2 x the "
+        f"JAX package's {FFT_GAP_JAX:g}))")
+    _check(abs(rel) <= FFT_BAR, "FFT field vs realized out of bounds")
+    ext = field[p - m:p + H + m, p - m:p + W + m]
+    excess = float(torch.clamp(ext - stars.sat, min=0.0).sum(
+        dtype=torch.float64))
+    spiked = F.spike_crop(field, stars.kernel, stars.sat, H, W, p, m)
+    sp_sum = float(spiked.sum(dtype=torch.float64))
+    bar = frac * excess * (1 + 1e-5)
+    log(f"[ccd] (c): saturation excess {excess:.1f} e-; spikes change the "
+        f"field's sum by {sp_sum - vis0:.1f} (<= spike fraction x excess "
+        f"{frac * excess:.1f}, +1e-5 for the FFT pair's rounding)")
+    _check(abs(sp_sum - vis0) <= bar, "spike overlay out of bounds")
+    return dict(spiked_sum=sp_sum)
+
+
+def _galaxy_buckets(device, host, cfg, spikes, n_gal: int):
+    """_fft_pass with force_fft on the n_gal brightest Sersic or knot
+    objects: the galaxy-bucket path (render_fft_stamps, a batched
+    apply_spikes, add_stamps) on the card, its noiseless stamps held to
+    the same call on the CPU to 1e-5 of max |stamp|."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.render import KNOTS, SERSIC
+    from imsim_tpu_torch.image.scene import COL_TYPE
+
+    n = host.n_objects
+    t = host.scene.params[:n, COL_TYPE].cpu().numpy()
+    gal = np.nonzero((t == SERSIC) | (t == KNOTS))[0]
+    ids = gal[np.argsort(host.flux[gal])[::-1][:n_gal]]
+    modes = np.full(n, PP.PHOT, np.int8)
+    modes[ids] = PP.FFT
+    cfg = dataclasses.replace(cfg, force_fft=True)
+    psf = PP.make_psf_mtf(cfg)
+    img, realized = PP._fft_pass(
+        torch.zeros((cfg.ysize, cfg.xsize), device=device), host, modes,
+        cfg, psf, 0, spikes=spikes)
+    _, buckets = PP.fft_plan(host, modes, cfg, psf, spikes)
+    worst = 0.0
+    for b in buckets:
+        got = PP.galaxy_stamps(b, psf, cfg, spikes, device).cpu()
+        want = PP.galaxy_stamps(b, psf, cfg, spikes, "cpu")
+        worst = max(worst, float((got - want).abs().max()
+                                 / want.abs().max()))
+    total = float(img.sum(dtype=torch.float64))
+    log(f"[ccd] galaxy buckets: {len(ids)} galaxies (flux "
+        f"{host.flux[ids].min():.0f}-{host.flux[ids].max():.0f}) in "
+        f"{len(buckets)} buckets {[(b.N, b.n_s, len(b.ids)) for b in buckets]}"
+        f"; stamps vs the CPU call: {worst:.3g} of max |stamp| (<= 1e-5); "
+        f"image sum {total:.1f}, realized {realized.sum().item():.1f}")
+    _check(worst <= 1e-5 and np.isfinite(total) and total > 0,
+           "galaxy-bucket stamps disagree with the CPU call")
 
 
 # the probes' kernels: report name, CUDA source, TPU kernel replaced
@@ -404,7 +602,7 @@ def run(device, small: bool = False) -> dict:
         phase_build()
     state, host, cfg, ctx = workload(device, small)
     rows, nb = phase_kernels(device, state, host, cfg, ctx)
-    res = phase_slice(device, state, host, cfg, ctx, nb)
+    res = phase_ccd(device, state, host, cfg, ctx, nb, small)
     for row in rows:
         row["launches"] = res["launches"][row["name"]]
     rows += phase_probes(device, small)

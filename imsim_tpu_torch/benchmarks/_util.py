@@ -139,16 +139,21 @@ def check_kernel(timer: Timer, kernel, plain, rel_bar: float,
 
 
 # the bench workload (bench.py main()): NB = 6 batches of the pooled
-# photons; batch_size is set high enough that pooled_plan keeps NB = 6
+# photons (batch_size is set high enough that pooled_plan keeps NB = 6);
+# the FFT branch at the template's 2e5 e-/px threshold, fwhm 0.7 and the
+# bench sky's noise variance (17,500 photons/arcsec^2 x 0.2^2)
 BENCH_CFG = dict(nbatch=6, batch_size=30_000_000, pupil_pairing=4,
-                 screen_share=4, nsub=4)
+                 screen_share=4, nsub=4, fft_sb_thresh=2e5, fwhm=0.7,
+                 noise_var=17_500.0 * 0.04)
 PX_RAD = 0.2 / 3600 * math.pi / 180    # 1 pixel in radians
 
 
 def workload(device, small: bool = False):
     """(state, host, cfg, ctx): the bench scene on `device`, or for a
     rehearsal a 500-object scene around the CCD centre seen through a
-    512 x 512 detector window."""
+    512 x 512 detector window, with two bright stars for the FFT pass
+    (pixel positions scaled into the window; noise_var 0 keeps their
+    stamps, and so the padded frame, small)."""
     import dataclasses
 
     import numpy as np
@@ -166,9 +171,11 @@ def workload(device, small: bool = False):
     near = np.nonzero(np.hypot(state.thx - cx, state.thy - cy)
                       < 180 * PX_RAD)[0][:n]
     host = synthetic_scene(
-        state, device, n_obj=n, total_photons=3e5, n_bright=0,
-        field_angles=lambda x, y: (state.thx[near], state.thy[near]),
-        modes=None)
-    cfg = PoolingConfig(xsize=512, ysize=512, **dict(BENCH_CFG, nbatch=2))
+        state, device, n_obj=n, total_photons=3e5, n_bright=2,
+        field_angles=lambda x, y: (state.thx[near], state.thy[near]))
+    host.pix_x = host.pix_x * (512 / state.nx)
+    host.pix_y = host.pix_y * (512 / state.ny)
+    cfg = PoolingConfig(xsize=512, ysize=512,
+                        **dict(BENCH_CFG, nbatch=2, noise_var=0.0))
     ctx = dataclasses.replace(state.ctx, det_nx=512, det_ny=512)
     return state, host, cfg, ctx

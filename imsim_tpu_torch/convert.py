@@ -15,6 +15,12 @@ data:
     package);
   * `synthetic_scene` reproduces bench.build_synthetic_host's numpy
     draws with the field angles from the state.
+
+Beside the optics and sensor state, the bench CCD carries its readout
+parameters (R22_S11's gains, read noises, bias levels, crosstalk,
+vendor and full well), the bench sky level and the coarse vignetting
+grid of its sky stage.  The full-resolution fringe map stays out: it is
+host code's output at full size.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .electronics.readout import CcdReadout
 from .image.scene import WL_CDF_K, DeviceScene, SceneHost, fit_wl_cheb
 from .optics.telescope import Telescope, surf_matrix
 from .photons.optics_ops import OpticsContext
@@ -41,6 +48,8 @@ _CTX_F32 = ("bore_alt", "bore_az", "j01", "j11", "crot", "srot", "k1_ref",
 _CTX_F64 = ("latitude", "pressure_kpa", "temperature_k", "h2o_kpa")
 _POLY = ("c_core", "c_tail", "u_split", "s_lo", "s_hi")
 _SERSIC = ("D_core", "D_tail", "n_lo", "n_hi", "u_split", "s_lo", "s_hi")
+_READOUT = ("vendor", "gains", "read_noises", "bias_levels", "xtalk",
+            "full_well")
 
 
 def _f32(v) -> float:
@@ -126,6 +135,17 @@ def screens_from_numpy(screens, device) -> AtmScreens:
         else tuple(float(w) for w in screens.weights))
 
 
+def readout_from_numpy(ro, device) -> CcdReadout:
+    """CcdReadout on `device` from an object with the _READOUT
+    attributes (vendor, 16 gains, read noises [ADU], bias levels [ADU],
+    the 16 x 16 crosstalk and the full well [e-]); the chain's other
+    parameters keep the JAX package's CcdReadout defaults."""
+    return CcdReadout(str(np.asarray(ro.vendor)), np.asarray(ro.gains),
+                      np.asarray(ro.read_noises),
+                      np.asarray(ro.bias_levels), np.asarray(ro.xtalk),
+                      float(np.asarray(ro.full_well)), device=device)
+
+
 def screen_spec_from_numpy(screens, r0_500: float, L0: float,
                            kcrit: float) -> ScreenSpec:
     """ScreenSpec from an AtmScreens (weights, winds, size, scale, t0)
@@ -159,6 +179,10 @@ class CcdState:
     seed: int              # synthetic-scene seed the angles belong to
     total_photons: float
     n_bright: int
+    readout: CcdReadout
+    sky_level: float       # photons / arcsec^2
+    vig_coarse: np.ndarray  # (gh, gw) float32 vignetting at stride vig_step
+    vig_step: int
 
 
 def bench_columns(seed: int, n_obj: int, total_photons: float,
@@ -189,19 +213,19 @@ def bench_columns(seed: int, n_obj: int, total_photons: float,
     mu = 1.0 + rng.normal(0, 0.03, n_obj)
     cols = dict(x=thx, y=thy, obj_type=obj_type, p0=hlr, p1=srs_n, p2=q,
                 p3=beta, g1=g1, g2=g2, mu=mu)
-    return cols, flux
+    return cols, flux, (x, y)
 
 
 def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
-                    total_photons=None, n_bright=None, field_angles=None,
-                    modes="state") -> SceneHost:
-    """bench.build_synthetic_host's scene on `device`.
+                    total_photons=None, n_bright=None,
+                    field_angles=None) -> SceneHost:
+    """bench.build_synthetic_host's scene on `device`, with the objects'
+    pixel positions.
 
     Defaults reproduce the exported bench scene with the state's field
-    angles and modes.  Another size needs `field_angles(x, y)` (pixel
-    -> field angle) and `modes` (an array, or None for all pooled).
-    FFT-mode objects carry no pooled photons (flux 0; nominal_flux keeps
-    the drawn value)."""
+    angles.  Another size needs `field_angles(x, y)` (pixel -> field
+    angle).  Every object keeps its drawn flux: render_ccd_pooled's
+    classifier sends the bright ones to the FFT pass."""
     seed = state.seed if seed is None else seed
     n_obj = len(state.thx) if n_obj is None else n_obj
     total_photons = state.total_photons if total_photons is None \
@@ -214,10 +238,9 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
             raise ValueError("the state's field angles belong to its own "
                              "scene; pass field_angles for another one")
         field_angles = lambda x, y: (state.thx, state.thy)  # noqa: E731
-    if isinstance(modes, str) and modes == "state":
-        modes = state.modes
-    cols, flux = bench_columns(seed, n_obj, total_photons, n_bright,
-                               state.nx, state.ny, field_angles)
+    cols, flux, (px, py) = bench_columns(seed, n_obj, total_photons,
+                                         n_bright, state.nx, state.ny,
+                                         field_angles)
     n_pad = int(2 ** np.ceil(np.log2(n_obj)))
     fills = dict(p1=1.0, p2=1.0, mu=1.0)
     params = np.zeros((n_pad, 10), np.float32)
@@ -229,14 +252,10 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
     wl = np.linspace(552.0, 691.0, WL_CDF_K).astype(np.float32)
     wl_cheb = fit_wl_cheb(np.broadcast_to(wl, (n_pad, WL_CDF_K)).astype(
         np.float64))
-    pooled = flux.copy()
-    if modes is not None:
-        from .image.photon_pooling import FFT
-        pooled[np.asarray(modes)[:n_obj] == FFT] = 0.0
     scene = DeviceScene(params=torch.as_tensor(params, device=device),
                         wl_cheb=torch.as_tensor(wl_cheb, device=device))
-    return SceneHost(scene=scene, flux=pooled, nominal_flux=flux,
-                     n_objects=n_obj)
+    return SceneHost(scene=scene, flux=flux, nominal_flux=flux.copy(),
+                     n_objects=n_obj, pix_x=px, pix_y=py)
 
 
 def load_ccd_state(path: str = BENCH_STATE, device="cuda") -> CcdState:
@@ -266,4 +285,7 @@ def load_ccd_state(path: str = BENCH_STATE, device="cuda") -> CcdState:
         thx=ns["scene"].thx, thy=ns["scene"].thy, modes=ns["scene"].modes,
         seed=int(ns["scene"].seed),
         total_photons=float(ns["scene"].total_photons),
-        n_bright=int(ns["scene"].n_bright))
+        n_bright=int(ns["scene"].n_bright),
+        readout=readout_from_numpy(ns["ro"], device),
+        sky_level=float(ns["sky"].level), vig_coarse=ns["sky"].vig,
+        vig_step=int(ns["sky"].vig_step))

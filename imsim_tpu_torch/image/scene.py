@@ -53,10 +53,14 @@ class DeviceScene:
 
 @dataclasses.dataclass
 class SceneHost:
-    """Host companion: realized photon counts per object and the
-    object count before padding."""
+    """Host companion: realized photon counts per object, the object
+    count before padding, and the objects' pixel positions (the FFT
+    branch places its stamps in pixels; the device scene's COL_X/COL_Y
+    hold field angles on the optics path)."""
 
     scene: DeviceScene
     flux: np.ndarray          # (n,) realized photon counts
     nominal_flux: np.ndarray  # (n,) expectation values
     n_objects: int
+    pix_x: np.ndarray | None = None  # (n_objects,) pixel coords
+    pix_y: np.ndarray | None = None

@@ -243,9 +243,10 @@ def field_to_sensor_cuda(tel, ctx, thx, thy, pu, pv, wl, t, flux, normal,
 # kick * 1e-6 m / dist: under 0.05 px only beyond ~2.3 mm from every
 # spider edge.  Photons closer than NEAR_EDGE_M (~0.4% of the pupil)
 # can also sit at a tie between two edges, where rounding picks either
-# edge's normal and flips the kick's direction; they are held to a
-# sanity bar of three times their own kick, and the count beyond 10% of
-# the kick is reported.
+# edge's normal and flips the kick's direction.  A tie (the two nearest
+# edges within diffraction.TIE_M) flips it at any distance.  Both kinds
+# are held to a sanity bar of three times their own kick, and the count
+# of near-edge photons beyond 10% of the kick is reported.
 NEAR_EDGE_M = 3e-3
 PIXEL_RAD = 0.2 / 3600 * np.pi / 180    # 0.2 arcsec per 10 um pixel
 
@@ -256,33 +257,42 @@ def chain_gaps(ref, out, ctx, pupil_u, pupil_v, wavelength_nm, time_s,
     """Compare two chain outputs (5-tuples, or fused 3-tuples) on the
     photons both land that lie on or within `margin` px of the detector:
     vignette mismatch, largest |dx|, |dy| (and slope) gap away from the
-    spider edges, and near the edges the largest excess of the gap over
-    three times the photon's own diffraction kick."""
+    spider edges and their ties, and near an edge or at a tie the
+    largest excess of the gap over three times the photon's own
+    diffraction kick."""
     rl, ol = ref[-1] > 0, out[-1] > 0
     x, y = ref[0], ref[1]
     on = rl & ol & (x > -margin) & (x < ctx.det_nx + margin) \
         & (y > -margin) & (y < ctx.det_ny + margin)
+    tie = torch.zeros_like(on)
     if apply_diffraction:
-        dist = D.spider_distance(pupil_u, pupil_v,
-                                 time_s if field_rotation else None,
-                                 ctx.latitude, ctx.bore_alt, ctx.bore_az)
+        rot = (time_s if field_rotation else None, ctx.latitude,
+               ctx.bore_alt, ctx.bore_az)
+        dist = D.spider_distance(pupil_u, pupil_v, *rot)
         k = 2 * np.pi / (wavelength_nm * 1e-9)
         kick_px = torch.atan(1.0 / (2.0 * k * torch.clamp(dist, min=1e-9))) \
             * normal.abs() / PIXEL_RAD
         near = dist < NEAR_EDGE_M
+        far = torch.nonzero(on & ~near)[:, 0]
+        two = D.two_nearest_edges(pupil_u[far], pupil_v[far],
+                                  None if rot[0] is None else rot[0][far],
+                                  *rot[1:])
+        tie[far] = (two[1] - two[0]) < D.TIE_M
     else:
         kick_px = torch.zeros_like(x)
         near = torch.zeros_like(on)
     dxy = torch.maximum((out[0] - x).abs(), (out[1] - y).abs())
-    strict = on & ~near
+    kicked = on & (near | tie)
+    strict = on & ~near & ~tie
     gaps = dict(landed=float(rl.float().mean()),
                 vignette_mismatch=float((rl != ol).float().mean()),
                 n_on=int(on.sum()), n_near_edge=int((on & near).sum()),
+                n_tie=int(tie.sum()),
                 n_near_edge_over_10pct=int(
-                    (on & near & (dxy > 0.35 + 0.1 * kick_px)).sum()),
+                    (kicked & (dxy > 0.35 + 0.1 * kick_px)).sum()),
                 dxy=float(dxy[strict].max()),
-                near_edge_excess=float((dxy - 3.0 * kick_px)[on & near].max())
-                if bool((on & near).any()) else 0.0)
+                near_edge_excess=float((dxy - 3.0 * kick_px)[kicked].max())
+                if bool(kicked.any()) else 0.0)
     if len(ref) == 5:
         gaps["dslope"] = float(torch.maximum(
             (out[2] - ref[2]).abs(), (out[3] - ref[3]).abs())[strict].max())
@@ -292,7 +302,7 @@ def chain_gaps(ref, out, ctx, pupil_u, pupil_v, wavelength_nm, time_s,
 def gaps_ok(gaps: dict, fused: bool) -> bool:
     """The bar of tests/test_optics.py: vignette mismatch < 5e-4 (fused
     form < 1e-3), |dx|, |dy| <= 0.35 px, |dslope| <= 5e-4 (away from the
-    spider edges; near them 0.35 px + 3 kicks)."""
+    spider edges and their ties; there 0.35 px + 3 kicks)."""
     return (gaps["vignette_mismatch"] < (1e-3 if fused else 5e-4)
             and gaps["n_on"] > 1000 and gaps["dxy"] <= 0.35
             and gaps["near_edge_excess"] <= 0.35

@@ -24,6 +24,11 @@ SPIDER_CIRCLES = np.array([
 
 OMEGA_EARTH = 7.292115826090781e-05  # rad/s
 
+# Two edge distances closer than this are a tie: about four float32 ulps
+# of a pupil coordinate at the 4.18 m rim, the rounding of the rotated
+# pupil point and of the distances.  Either edge's kick is right there.
+TIE_M = 2e-6
+
 
 def nearest_edge(px, py):
     """Distance and unit direction (dist, nx, ny) from pupil points to
@@ -51,6 +56,23 @@ def nearest_edge(px, py):
         ny = torch.where(closer, dyc / rr, ny)
         dist = torch.minimum(dc, dist)
     return dist, nx, ny
+
+
+def two_nearest_edges(pupil_u, pupil_v, t=None, latitude=-0.5278,
+                      altitude=None, azimuth=None) -> torch.Tensor:
+    """(2, n) float64: the two smallest distances [m] from each pupil
+    point to a spider vane or aperture circle, in the rotating spider
+    frame (t None: no rotation)."""
+    u, v = pupil_u.double(), pupil_v.double()
+    if t is not None and altitude is not None:
+        s, c = field_rotation_sincos(t, latitude, altitude, azimuth)
+        c, s = c.double(), s.double()
+        u, v = c * u - s * v, s * u + c * v
+    edges = [((nx * u + ny * v - d0).abs() - th).abs()
+             for nx, ny, d0, th in SPIDER_LINES.tolist()]
+    edges += [(torch.hypot(u - cx, v - cy) - r).abs()
+              for cx, cy, r in SPIDER_CIRCLES.tolist()]
+    return torch.sort(torch.stack(edges), dim=0).values[:2]
 
 
 def field_rotation_frame(latitude: float, altitude: float,

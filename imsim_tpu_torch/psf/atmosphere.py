@@ -37,6 +37,17 @@ def vonkarman_phase_spectrum(k, r0, L0):
             * (k**2 + 1.0 / L0**2) ** (-11.0 / 6.0))
 
 
+def vonkarman_structure(rho, r0, L0):
+    """von Karman phase structure function D(rho) [rad^2], rho in meters
+    (copy of imsim_tpu.photons.profiles.vonkarman_structure)."""
+    k = np.geomspace(1e-4, 1e4, 4096)
+    Phi = vonkarman_phase_spectrum(k, r0, L0)
+    rho = np.atleast_1d(rho)
+    D = 2.0 * np.trapezoid(
+        (1.0 - special.j0(np.outer(rho, k))) * (Phi * k)[None, :], k, axis=1)
+    return D
+
+
 def _screen_spectrum_amplitude(n, scale, r0, L0, kcrit_rad):
     """sqrt(power) filter of one layer on the FFT frequency grid, zeroed
     above kcrit (copy of imsim_tpu.psf.atmosphere's host helper)."""

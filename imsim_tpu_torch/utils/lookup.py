@@ -13,11 +13,16 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class UniformTable:
     """y = f(x) on a uniform grid [x0, x0 + (n-1)*dx]; linear
-    interpolation, clamped at the ends."""
+    interpolation, clamped at the ends.  Host tables (the FFT branch's
+    MTFs) hold a numpy y and are read through x0, dx, y and x_max."""
 
     x0: float
     dx: float
-    y: torch.Tensor  # (n,)
+    y: torch.Tensor  # (n,); numpy float32 for a host table
+
+    @property
+    def x_max(self) -> float:
+        return self.x0 + (self.y.shape[0] - 1) * self.dx
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         n = self.y.shape[0]

@@ -54,3 +54,16 @@ def normal(gen: torch.Generator, n: int) -> torch.Tensor:
     """(n,) float32 standard normal draws on the generator's device."""
     return torch.randn(n, generator=gen, device=gen.device,
                        dtype=torch.float32)
+
+
+def poisson_approx(gen: torch.Generator, lam: torch.Tensor) -> torch.Tensor:
+    """Poisson draws that stay fast for the large means of sky and bright
+    stars (imsim_tpu.utils.rng.poisson_approx): an exact draw from
+    `gen` below 1000, the rounded Gaussian lam + sqrt(lam) N(0, 1) from
+    1000 up (error < 0.1% of sigma there).  float32, on lam's device."""
+    lam = lam.to(torch.float32)
+    small = torch.poisson(torch.clamp(lam, min=0.0, max=1000.0),
+                          generator=gen)
+    gauss = lam + torch.sqrt(torch.clamp(lam, min=1e-12)) * torch.randn(
+        lam.shape, generator=gen, device=lam.device, dtype=torch.float32)
+    return torch.where(lam <= 1000.0, small, torch.round(gauss))

@@ -87,8 +87,12 @@ def test_port_imports_and_renders_without_jax():
     # the probe phase ran every probe_rows case
     assert sum(ln.startswith("[probes] ") and ln.endswith(" ms")
                for ln in lines) == 13
-    # the rehearsal reached the slice's charge and landing checks
-    assert "[slice] warm" in res.stdout and "landed fraction" in res.stdout
+    # the rehearsal reached the whole CCD's gates, warm, and the
+    # galaxy-bucket path
+    for gate in "adef":
+        assert f"[ccd] warm ({gate})" in res.stdout, gate
+    assert "[ccd] (b)" in res.stdout and "[ccd] (c)" in res.stdout
+    assert "[ccd] galaxy buckets" in res.stdout
 
 
 def _imported_modules(path):

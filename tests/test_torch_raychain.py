@@ -129,6 +129,53 @@ def test_chain_gaps_separates_spider_edge_photons():
     assert raychain.gaps_ok(g, fused=True) is False   # n_on <= 1000
 
 
+def test_chain_gaps_holds_spider_edge_ties_to_the_kick_bar():
+    """A photon at an exact tie between the two parallel vanes at
+    +-0.4 m (0.375 m from both edges, far beyond NEAR_EDGE_M) may take
+    either vane's kick: the old rule held it to 0.35 px and refused a
+    0.6 px gap, chain_gaps now holds it to three of its kicks and
+    accepts it.  The same gap off the tie is still refused."""
+    from imsim_tpu_torch.convert import load_ccd_state
+    from imsim_tpu_torch.photons import diffraction as D
+
+    ctx = load_ccd_state(device="cpu").ctx
+    n = 2001
+    g = torch.Generator().manual_seed(4)
+    # filler photons on the annulus, between the vanes' ends, no gap
+    r = torch.sqrt(2.7**2 + torch.rand(n, generator=g) * (4.0**2 - 2.7**2))
+    a = torch.rand(n, generator=g) * 2 * np.pi
+    pu, pv = r * torch.cos(a), r * torch.sin(a)
+    pu[0], pv[0] = 2.4, -2.4              # u + v = 0: the tie
+    base = [torch.full((n,), 2000.0), torch.full((n,), 2000.0),
+            torch.ones(n)]
+    moved = [base[0].clone(), base[1], base[2]]
+    moved[0][0] += 0.6
+    args = (torch.full((n,), 622.0), torch.zeros(n), torch.ones(n))
+
+    def gaps(u, v):
+        return raychain.chain_gaps(base, moved, ctx, u, v, *args,
+                                   field_rotation=False)
+
+    two = D.two_nearest_edges(pu[:1], pv[:1])
+    assert float(two[1, 0] - two[0, 0]) < D.TIE_M
+    assert float(two[0, 0]) > 100 * raychain.NEAR_EDGE_M
+    # the old rule: every photon beyond NEAR_EDGE_M in the strict set
+    dist = D.spider_distance(pu, pv)
+    assert float(dist[0]) > raychain.NEAR_EDGE_M
+    assert float((moved[0] - base[0])[dist >= raychain.NEAR_EDGE_M].max()) \
+        > 0.35
+    new = gaps(pu, pv)
+    assert new["n_tie"] == 1 and new["dxy"] == 0.0
+    assert 0.0 < new["near_edge_excess"] <= 0.35
+    assert raychain.gaps_ok(new, fused=True), new
+    # off the tie (u + v = 0.2 m), the same 0.6 px is refused
+    off_u = pu.clone()
+    off_u[0] = 2.6
+    off = gaps(off_u, pv)
+    assert off["n_tie"] == 0 and abs(off["dxy"] - 0.6) < 1e-3
+    assert not raychain.gaps_ok(off, fused=True)
+
+
 def test_chain_params_layout_matches_cuda_source():
     """The ctypes mirror of `struct ChainParams` lists the C fields in
     the same order with the same element counts (the card checks the
@@ -231,8 +278,8 @@ def test_chain_random_on_the_cpu_meets_the_bar():
 
     out = CR.main("cpu", n=4096, seed=2, log=lambda *_: None)
     for form, r in out.items():
-        assert r["beyond_bar"] == [] and r["dxy_untied"] == 0.0, form
-        assert r["gaps"]["n_on"] > 1000 and r["ok_but_ties"], form
+        assert r["beyond_bar"] == [] and r["gaps"]["dxy"] == 0.0, form
+        assert r["gaps"]["n_on"] > 1000 and r["ok"], form
 
 
 def test_chain_random_lists_photons_beyond_the_bar():
@@ -254,7 +301,8 @@ def test_chain_random_lists_photons_beyond_the_bar():
     i = int(torch.nonzero(ok)[0, 0])
     got = [w.clone() for w in want]
     got[0][i] += 2.0
-    rows, dxy_untied = CR.beyond_bar(want, got, st.ctx, args)
+    rows = CR.beyond_bar(want, got, st.ctx, args)
     assert [r["photon"] for r in rows] == [i] and not rows[0]["tie"]
-    assert abs(rows[0]["dxy"] - 2.0) < 1e-3 and dxy_untied == rows[0]["dxy"]
+    gaps = raychain.chain_gaps(want, got, st.ctx, *args[2:6], args[7])
+    assert abs(rows[0]["dxy"] - 2.0) < 1e-3 and gaps["dxy"] == rows[0]["dxy"]
     assert 0.05 < rows[0]["edge1_m"] < rows[0]["edge2_m"]

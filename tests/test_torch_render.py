@@ -106,7 +106,7 @@ def test_render_ccd_pooled_matches_jax(corner_scene):
         sersic=CV.sersic_from_numpy(JP.sersic_poly2d()),
         exp_disk=CV.polycdf_from_numpy(JP.exp_disk_poly()))
     tally = {}
-    timg, _ = TPP.render_ccd_pooled(
+    timg, _, _ = TPP.render_ccd_pooled(
         3, host, TPP.PoolingConfig(**kw),
         CV.silicon_from_numpy(s["sil"]),
         CV.telescope_from_numpy(s["tel"]),
@@ -137,14 +137,98 @@ def test_render_ccd_pooled_matches_jax(corner_scene):
 
 
 def test_fft_branch_is_refused():
-    """A config that asks for the FFT bright-star pass raises instead of
-    silently skipping it."""
-    host = CV.SceneHost(scene=None, flux=np.ones(4), nominal_flux=np.ones(4),
-                        n_objects=4)
-    for cfg in (TPP.PoolingConfig(fft_sb_thresh=2e5),
-                TPP.PoolingConfig(force_fft=True)):
-        with pytest.raises(NotImplementedError, match="FFT"):
-            TPP.classify_objects(host, cfg)
+    """The FFT branch runs where it used to be refused: on the bench
+    scene the port's classifier at the bench's FFT settings sends the 17
+    bright stars to it, and force_fft sends every non-faint object.  A
+    force_fft config without the PSF MTF (fft_sb_thresh 0) is still
+    refused by the pass, which has no PSF to render with."""
+    st = CV.load_ccd_state(device="cpu")
+    host = CV.synthetic_scene(st, "cpu")
+    cfg = TPP.PoolingConfig(xsize=st.nx, ysize=st.ny, fft_sb_thresh=2e5,
+                            fwhm=0.7, noise_var=st.sky_level * 0.04)
+    modes = TPP.classify_objects(host, cfg, TPP.make_psf_mtf(cfg))
+    assert (modes == TPP.FFT).sum() == 17
+    forced = TPP.PoolingConfig(force_fft=True)
+    modes = TPP.classify_objects(host, forced)
+    assert ((modes == TPP.FFT) == (host.flux[:host.n_objects]
+                                   >= forced.faint_thresh)).all()
+    with pytest.raises(ValueError, match="fft_sb_thresh"):
+        TPP._fft_pass(torch.zeros((16, 16)), host, modes, forced, None, 0)
+
+
+def test_render_ccd_pooled_fft_branch_matches_jax(corner_scene, monkeypatch):
+    """The whole slice on the corner scene with three grid stars at 4e6
+    photons and two galaxies at 3e7 (FFT mode, with spikes) and the
+    rest pooled, per-object realized flux tracked.  The FFT part is held
+    to the JAX package's noiseless part (poisson_approx -> identity in
+    both): the pass's added charge and the FFT objects' realized flux to
+    1e-5; the pooled part statistically, as
+    test_render_ccd_pooled_matches_jax (image minus the FFT field: total
+    flux, the other grid stars' centroids), and its realized flux per
+    object within 5 sqrt(flux) + 1% (vignetting differs by photon)."""
+    import imsim_tpu.utils.rng as JR
+    from imsim_tpu.image.diffraction_fft import spike_kernel as j_kernel
+    from imsim_tpu_torch.utils import rng as TR
+
+    monkeypatch.setattr(JR, "poisson_approx", lambda key, lam: lam)
+    monkeypatch.setattr(TR, "poisson_approx", lambda gen, lam: lam)
+    monkeypatch.setattr(TPP, "poisson_approx", lambda gen, lam: lam)
+    s = corner_scene
+    flux = s["jhost"].flux.copy()
+    flux[:3] = 4e6
+    flux[30:32] = 3e7
+    jhost = JHost(scene=s["jhost"].scene, flux=flux, nominal_flux=flux,
+                  n_objects=s["jhost"].n_objects, pix_x=s["xs"],
+                  pix_y=s["ys"])
+    kw = dict(xsize=512, ysize=512, nbatch=3, pupil_pairing=4,
+              screen_share=4, nsub=4, fft_sb_thresh=2e5, fwhm=0.7)
+    sp = dict(kernel=j_kernel(622.0, 0.2, 45.0, 0.1, n=65,
+                              spike_flux_fraction=0.02, profile_power=1.1,
+                              r_scale_px=3.0), sat=1e5)
+    jcfg = JPP.PoolingConfig(**kw)
+    jimg, jmodes, jreal = JPP.render_ccd_pooled(
+        3, jhost, jcfg, s["sil"], s["tel"], s["octx"], s["screens"], s["sk"],
+        spikes=sp, track_realized=True)
+    jfft, _ = JPP._fft_pass(jnp.zeros((512, 512)), jhost, jmodes, jcfg,
+                            JPP.make_psf_mtf(jcfg), 3, spikes=sp)
+    jimg, jfft = np.asarray(jimg, np.float64), np.asarray(jfft, np.float64)
+
+    host = CV.host_from_numpy(jhost, "cpu")
+    host.pix_x, host.pix_y = s["xs"], s["ys"]
+    profiles = ProfileTables(
+        sersic=CV.sersic_from_numpy(JP.sersic_poly2d()),
+        exp_disk=CV.polycdf_from_numpy(JP.exp_disk_poly()))
+    tally = {}
+    timg, modes, treal = TPP.render_ccd_pooled(
+        3, host, TPP.PoolingConfig(**kw), CV.silicon_from_numpy(s["sil"]),
+        CV.telescope_from_numpy(s["tel"]),
+        CV.optics_context_from_numpy(s["octx"]),
+        CV.screens_from_numpy(s["screens"], "cpu"),
+        CV.polycdf_from_numpy(s["sk"]), profiles=profiles, spikes=sp,
+        track_realized=True, tally=tally)
+    np.testing.assert_array_equal(modes, jmodes)
+    fft = np.nonzero(modes == TPP.FFT)[0]
+    assert list(fft) == [0, 1, 2, 30, 31]
+    # the FFT part, noiseless
+    assert float(tally["fft"]) == pytest.approx(jfft.sum(), rel=1e-5)
+    np.testing.assert_allclose(treal[fft], jreal[fft], rtol=1e-5)
+    # the pooled part: charge accounting, total and centroids
+    tpool = timg.numpy().astype(np.float64) - jfft
+    jpool = jimg - jfft
+    tt, jt = tpool.sum(), jpool.sum()
+    assert abs(tt - float(tally["in_frame"])) <= 1e-4 * tt + 1.0
+    assert abs(jt - tt) <= 3 * np.sqrt(jt) + 0.005 * jt, (jt, tt)
+    for x, y in zip(s["xs"][3:30], s["ys"][3:30]):
+        jx, jy, js = _centroid(jpool, x, y)
+        tx, ty, ts = _centroid(tpool, x, y)
+        sig = np.hypot(js, ts)
+        assert abs(jx - tx) <= 0.05 + 3 * sig, (x, y, jx, tx, sig)
+        assert abs(jy - ty) <= 0.05 + 3 * sig, (x, y, jy, ty, sig)
+    pooled = np.nonzero(modes != TPP.FFT)[0]
+    np.testing.assert_array_less(
+        np.abs(treal[pooled] - jreal[pooled]),
+        5 * np.sqrt(flux[pooled]) + 0.01 * flux[pooled] + 1)
+    assert treal[s["jhost"].n_objects:].sum() == 0
 
 
 def test_profile_samplers_match_jax():
@@ -236,8 +320,9 @@ def test_ideal_sensor_render_and_unported_families(corner_scene):
             CV.screens_from_numpy(s["screens"], "cpu"),
             CV.polycdf_from_numpy(s["sk"]))
     tally = {}
-    img, modes = TPP.render_ccd_pooled(
+    img, modes, realized = TPP.render_ccd_pooled(
         5, host, cfg, *args, profiles=profiles, tally=tally)
+    assert realized.shape == (host.scene.n,) and not realized.any()
     assert float(img.sum()) == pytest.approx(float(tally["in_frame"]),
                                              rel=1e-6)
     assert float(tally["in_frame"]) > 0.9 * host.flux.sum()
