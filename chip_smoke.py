@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's pooled full-physics CCD render on one
-NVIDIA GPU, end to end, and check it.
+"""Drive the PyTorch/CUDA port's CCD render on one NVIDIA GPU, end to
+end, and check it: the bench CCD through the optics chain and through
+the analytic PSF, the flats, and the silicon modes and object families.
 
     python3 chip_smoke.py
 
@@ -33,8 +34,24 @@ ok line is never printed):
      of K4 and P1-P7 held against its plain twin, with launch counts,
      bounds and one-call yardsticks (K4: torch.cumsum; P1-P3: their
      twins' single call; P4-P7: one float32 conv2d each);
-  6. the kernel report (JSON, all eleven kernels, with bound_ms,
-     bound_by and library_ms) and, last, the ok line.
+  6. the analytic-PSF bench CCD, cold and warm: the same catalog with
+     pixel positions through render_ccd_pooled without optics (the FFT
+     stars with spikes, render.shoot, the silicon displaced chunk by
+     chunk: K1 = 6, K2 = 0, K3 = 24), the sky, the cosmic rays and the
+     readout; gates (g) the charge, (h) one 1e7-photon star's <r^2>
+     against the PSF table and its centroid, (i) the cosmic-ray charge;
+  7. the flats on the full 4096 x 4004 frame: build_flat at the
+     runner's defaults (80,000 e-/px in 80 iterations, K3 = 80) and
+     with a zero BF kernel, build_flat_photons cut to 50 e-/px (8.2e8
+     photons, K3 = 49); gates (j) mean and var/mean, (k) the photon
+     flat's mean and var/mean;
+  8. families and modes: (l) knots, streaks and FITS clouds through
+     sample_intrinsic on the card with host draws, against the CPU; (m)
+     one analytic bench batch accumulated in bf_mode 'photon' and
+     'image' (K3 = 4 each), charge and stacked star <r^2>;
+  9. the kernel report (JSON, all eleven kernels, with bound_ms,
+     bound_by, library_ms and the launches on every path) and, last,
+     the ok line.
 
 The script needs CUDA and refuses to run without it.  `run()` takes a
 device and a size so the CPU tests can rehearse the same phases at a
@@ -286,6 +303,19 @@ def _check(ok: bool, what: str):
         raise AssertionError(what)
 
 
+def _frame(eimage, state):
+    """The eimage on the CCD's full frame: the rehearsal's 512 x 512
+    window is read out in the corner of a full E2V frame (the amp
+    geometry is the vendor's)."""
+    import torch
+
+    if eimage.shape == (state.ny, state.nx):
+        return eimage
+    full = torch.zeros((state.ny, state.nx), device=eimage.device)
+    full[:eimage.shape[0], :eimage.shape[1]] = eimage
+    return full
+
+
 def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
     """The whole bench CCD cold then warm (render with the FFT branch and
     spikes, sky and noise, readout), its gates, and the galaxy-bucket
@@ -297,7 +327,6 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
     from imsim_tpu_torch.image import photon_pooling as PP
     from imsim_tpu_torch.image.ccd_render import (add_sky_and_noise,
                                                   sky_expectation)
-    from imsim_tpu_torch.image.diffraction_fft import spike_kernel
     from imsim_tpu_torch.ops import _build
     from imsim_tpu_torch.psf.atmosphere import make_screens
     from imsim_tpu_torch.utils.rng import ATM_SEED_OFFSET, stream
@@ -308,28 +337,11 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
     screens = make_screens(state.screen_spec, device,
                            gen=stream(42 + ATM_SEED_OFFSET, "screens",
                                       device=device))
-    t0 = time.perf_counter()
-    kern = spike_kernel(622.0, 0.2, alpha_deg=45.0, rot_smear_deg=0.1,
-                        device=device)
-    spikes = dict(kernel=kern, sat=ro.full_well)
-    frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
-    log(f"[ccd] spike kernel {kern.shape[0]}x{kern.shape[1]}, calibrated "
-        f"spike fraction {frac:.5f} ({time.perf_counter() - t0:.2f} s), "
-        f"saturation at the full well {ro.full_well:.0f} e-")
+    spikes, frac = _spikes(device, ro)
     none = {k: 0 for k in _build.LAUNCHES}
     expect = dict(none, scan_slot_prefix=nb, field_to_sensor=nb,
                   stencil_pair=nb * cfg.nsub)
     grad = (0.0, 0.0, 1.0)
-
-    def frame(eimage):
-        # the rehearsal's 512 x 512 window is read out in the corner of
-        # a full E2V frame (the amp geometry is the vendor's)
-        if eimage.shape == (state.ny, state.nx):
-            return eimage
-        full = torch.zeros((state.ny, state.nx), device=device)
-        full[:H, :W] = eimage
-        return full
-
     result = {}
     for label in ("cold", "warm"):
         tally = {}
@@ -345,7 +357,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
                 vig_step=state.vig_step), none)
         raw, t_o, m_o, _ = _stage(
             timer, "readout", lambda: ro.chain(
-                stream(0, "readout", device=device), frame(eimage),
+                stream(0, "readout", device=device), _frame(eimage, state),
                 cfg.exptime), none)
         log(f"[ccd] {label}: render {t_r:.3f} s ({m_r:.2f} GiB peak, "
             f"launches {l_r}), sky {t_s:.3f} s ({m_s:.2f} GiB), readout "
@@ -417,6 +429,21 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
 
     _galaxy_buckets(device, host, cfg, spikes, 2 if small else 8)
     return result
+
+
+def _spikes(device, ro):
+    """The bench's spike overlay: the 513-px kernel (calibrated on the
+    device) at the full well.  Returns (spikes, spike fraction)."""
+    from imsim_tpu_torch.image.diffraction_fft import spike_kernel
+
+    t0 = time.perf_counter()
+    kern = spike_kernel(622.0, 0.2, alpha_deg=45.0, rot_smear_deg=0.1,
+                        device=device)
+    frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
+    log(f"[spikes] kernel {kern.shape[0]}x{kern.shape[1]}, calibrated "
+        f"spike fraction {frac:.5f} ({time.perf_counter() - t0:.2f} s), "
+        f"saturation at the full well {ro.full_well:.0f} e-")
+    return dict(kernel=kern, sat=ro.full_well), frac
 
 
 def _fft_gates(device, host, modes, cfg, spikes, frac, fft_sum):
@@ -523,7 +550,7 @@ def phase_probes(device, small: bool):
     after.  Each probe holds its kernels against their plain twins (K4:
     sqrt(n_obj) ulps of each row's scale; P1-P3 and the one-tap bodies
     bitwise; the stencils 1e-5 of max |out|); the bars are checked here.
-    Returns the report rows of K4 and P1-P7."""
+    Returns the report rows of K4 and P1-P7 and the phase's launches."""
     from imsim_tpu_torch.benchmarks import (probe_pallas, probe_pallas2,
                                             probe_rows)
     from imsim_tpu_torch.benchmarks._util import Timer
@@ -587,11 +614,384 @@ def phase_probes(device, small: bool):
             f"{b} {bodies[b]['ms']:.4f} ms (bound {bodies[b]['bound_ms']:.4f}"
             f" ms by {bodies[b]['bound_by']}, plain twin "
             f"{bodies[b]['plain_ms']:.4f} ms)" for b in names))
-    return report
+    return report, launches
+
+
+# ---- phase 6: the analytic-PSF bench CCD ----------------------------------
+
+def _table_r2(tab) -> float:
+    """E[r^2] of the piecewise-linear inverse CDF r(u) on [0, 1] (the
+    table's own interpolation), in float64."""
+    y = tab.y.double().cpu().numpy()
+    a, b = y[:-1], y[1:]
+    return float(((a * a + a * b + b * b) / 3.0).sum() / (len(y) - 1))
+
+
+def phase_analytic(device, small: bool):
+    """The bench catalog through the analytic PSF, cold then warm: the
+    FFT pass with spikes, the pooled photons through render.shoot with
+    the silicon displaced per chunk (K1 per batch, K3 per chunk), the
+    sky, the cosmic rays and the readout.  Gates (g) charge, (h) the PSF
+    of one 1e7-photon star, (i) the cosmic-ray charge.  Returns the
+    render's launch counts."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import Timer, analytic_workload
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.ccd_render import add_sky_and_noise
+    from imsim_tpu_torch.image.cosmic_rays import (CR_RATE_DEFAULT,
+                                                   cosmic_ray_hits,
+                                                   paint_cosmic_rays)
+    from imsim_tpu_torch.ops import _build
+    from imsim_tpu_torch.utils.rng import stream
+
+    timer = Timer(device)
+    state, host, cfg = analytic_workload(device, small)
+    ro = state.readout
+    spikes, _ = _spikes(device, ro)
+    _, _, nb, _ = PP.pooled_plan(host, PP.classify_objects(
+        host, cfg, PP.make_psf_mtf(cfg)), cfg)
+    none = {k: 0 for k in _build.LAUNCHES}
+    expect = dict(none, scan_slot_prefix=nb, stencil_pair=nb * cfg.nsub)
+    result = {}
+    # the rehearsal runs it once: the CPU's readout takes seconds
+    for label in ("cold",) if small else ("cold", "warm"):
+        tally = {}
+        (image, modes, _), t_r, m_r, l_r = _stage(
+            timer, "analytic render", lambda: PP.render_ccd_pooled(
+                0, host, cfg, state.silicon, profiles=state.profiles,
+                spikes=spikes, tally=tally), expect)
+        # (g) the pooled charge, as gate (a)
+        fft_sum = float(tally["fft"])
+        pooled_img = float(image.sum(dtype=torch.float64)) - fft_sum
+        in_frame = float(tally["in_frame"])
+        rel = abs(pooled_img - in_frame) / max(in_frame, 1.0)
+        landed = in_frame / float(tally["pooled"])
+        n_fft = int((modes == PP.FFT).sum())
+        log(f"[analytic] {label} (g): {n_fft} FFT objects, FFT charge "
+            f"{fft_sum:.1f}; pooled photons {float(tally['pooled']):.0f}, "
+            f"in-frame flux {in_frame:.1f}, image sum less the FFT charge "
+            f"{pooled_img:.1f} (rel gap {rel:.3g} <= 1e-4), landed fraction "
+            f"{landed:.6f} (> 0.8)")
+        _check(rel <= 1e-4 and landed > 0.8 and n_fft > 0,
+               "analytic charge accounting out of bounds")
+        eimage, t_s, _, _ = _stage(
+            timer, "sky", lambda: add_sky_and_noise(
+                stream(0, "sky", device=device), image, state.sky_level,
+                (0.0, 0.0, 1.0), state.vig_coarse, cfg.pixel_scale,
+                vig_step=state.vig_step), none)
+        del image
+        before = float(eimage.sum(dtype=torch.float64))
+        eimage, t_c, _, _ = _stage(
+            timer, "cosmic rays", lambda: paint_cosmic_rays(
+                eimage, cfg.exptime, 189, ccd_rate=CR_RATE_DEFAULT), none)
+        # (i) the painted charge against the hits' in-frame sum
+        pix, charge = cosmic_ray_hits(eimage.shape, cfg.exptime, 189,
+                                      ccd_rate=CR_RATE_DEFAULT)
+        painted = float(eimage.sum(dtype=torch.float64)) - before
+        want = float(charge.sum())
+        log(f"[analytic] {label} (i): {len(pix)} CR pixel hits, painted "
+            f"{painted:.3f} e- against the host's {want:.3f} (rel gap "
+            f"{abs(painted - want) / want:.3g} <= 1e-6)")
+        _check(len(pix) > 0 and abs(painted - want) <= 1e-6 * want,
+               "cosmic-ray charge out of bounds")
+        raw, t_o, m_o, _ = _stage(
+            timer, "readout", lambda: ro.chain(
+                stream(0, "readout", device=device), _frame(eimage, state),
+                cfg.exptime), none)
+        _check(tuple(raw.shape) == (16, 2048, 576)
+               and bool(torch.isfinite(raw).all()),
+               "analytic raw amps not finite or of the wrong shape")
+        whole = t_r + t_s + t_c + t_o
+        log(f"[analytic] {label}: render {t_r:.3f} s ({m_r:.2f} GiB peak, "
+            f"launches {l_r}), sky {t_s:.4f} s, cosmic rays {t_c:.4f} s, "
+            f"readout {t_o:.3f} s ({m_o:.2f} GiB); whole CCD {whole:.3f} s")
+        result[label] = dict(launches=l_r, render=t_r, sky=t_s, cr=t_c,
+                             readout=t_o, whole=whole)
+        del eimage, raw
+    _psf_gate(device, state, cfg, small)
+    return result
+
+
+def _psf_gate(device, state, cfg, small):
+    """(h): one star of 1e7 photons (1e5 in the rehearsal) through
+    render.shoot: its mean r^2 [arcsec^2] against the Kolmogorov table's
+    E[r^2] plus 2 sigma_g^2, within 5 of its standard errors; its
+    centroid within 0.02 px of the star."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.render import POINT, shoot
+    from imsim_tpu_torch.image.scene import DeviceScene
+    from imsim_tpu_torch.utils.rng import stream
+
+    n = 100_000 if small else 10_000_000
+    x0, y0 = 2048.3, 2002.7
+    cols = [np.array([v, 0.0], np.float32) for v in
+            (x0, y0, POINT, 0.5, 1.0, 1.0, 0.0, 0.0, 0.0, 1.0)]
+    scene = DeviceScene.from_columns(
+        *cols, wl_icdf=np.full((2, 96), 620.0, np.float32), device=device)
+    tabs = PP.analytic_psf_tables(cfg.fwhm, cfg.gauss_fwhm, device)
+    ph = shoot(stream(7, "psf", device=device), scene,
+               torch.zeros(n, dtype=torch.int64, device=device),
+               torch.ones(n, device=device), tabs, state.profiles,
+               pixel_scale=cfg.pixel_scale, families=(POINT,))
+    dx = ph.x.double() - float(np.float32(x0))
+    dy = ph.y.double() - float(np.float32(y0))
+    r2 = (dx * dx + dy * dy) * cfg.pixel_scale ** 2
+    mean, se = float(r2.mean()), float(r2.std()) / np.sqrt(n)
+    want = _table_r2(tabs["kolmogorov"]) + 2 * tabs["gauss_sigma"] ** 2
+    cx, cy = float(dx.mean()), float(dy.mean())
+    log(f"[analytic] (h): {n} photons, mean r^2 {mean:.5f} arcsec^2 against "
+        f"the table's {want:.5f} (gap {(mean - want) / se:.2f} standard "
+        f"errors of {se:.2g}, bar 5); centroid ({cx:+.4f}, {cy:+.4f}) px "
+        f"(bar 0.02)")
+    _check(abs(mean - want) <= 5 * se and abs(cx) <= 0.02
+           and abs(cy) <= 0.02, "analytic PSF second moment or centroid off")
+
+
+# ---- phase 7: flats at full frame -----------------------------------------
+
+def phase_flats(device, state, small: bool):
+    """build_flat at the runner's defaults (80 K3 launches on 4096 x
+    4004) and with a zero BF kernel; build_flat_photons at the cut
+    (one K3 launch per 16.7M-photon sub-batch).  Gates (j), (k).
+    Returns the launches of the flat and the photon flat."""
+    import dataclasses
+
+    import numpy as np
+
+    from imsim_tpu_torch.benchmarks._util import Timer, flat_workload
+    from imsim_tpu_torch.image import flat as FL
+    from imsim_tpu_torch.ops import _build
+    from imsim_tpu_torch.sensor.silicon import absorption_length_table
+
+    timer = Timer(device)
+    none = {k: 0 for k in _build.LAUNCHES}
+    cfg, pcfg, wl = flat_workload(small)
+    n_iter = FL.n_iterations(cfg)
+    flat, t_f, m_f, l_f = _stage(
+        timer, "flat", lambda: FL.build_flat(1, cfg, state.silicon, device),
+        dict(none, stencil_pair=n_iter))
+    st = FL.flat_statistics(flat)
+    del flat
+    no_bf = dataclasses.replace(
+        state.silicon, bf_kernel=np.zeros_like(state.silicon.bf_kernel))
+    flat0, t_0, _, _ = _stage(
+        timer, "flat without BF", lambda: FL.build_flat(1, cfg, no_bf,
+                                                        device),
+        dict(none, stencil_pair=n_iter))
+    st0 = FL.flat_statistics(flat0)
+    del flat0
+    log(f"[flats] flat {cfg.ysize}x{cfg.xsize}, {cfg.counts_per_pixel:.0f} "
+        f"e-/px in {n_iter} iterations: {t_f:.3f} s ({m_f:.2f} GiB peak, "
+        f"launches {l_f}); without BF {t_0:.3f} s")
+    log(f"[flats] (j): mean {st['mean']:.2f} (rel gap "
+        f"{st['mean'] / cfg.counts_per_pixel - 1:+.5f}, bar 0.005), var/mean "
+        f"{st['var_over_mean']:.4f} (< 0.97); without BF var/mean "
+        f"{st0['var_over_mean']:.4f} (|. - 1| < 0.03)")
+    _check(abs(st["mean"] / cfg.counts_per_pixel - 1) <= 0.005
+           and st["var_over_mean"] < 0.97
+           and abs(st0["var_over_mean"] - 1) < 0.03, "flat PTC out of bounds")
+
+    n_it, n_sub, per = FL.photon_flat_plan(pcfg)
+    pflat, t_p, m_p, l_p = _stage(
+        timer, "photon flat", lambda: FL.build_flat_photons(
+            2, pcfg, wl, state.silicon, device),
+        dict(none, stencil_pair=n_it * n_sub))
+    sp = FL.flat_statistics(pflat)
+    del pflat
+    # the expectation: every photon that converts inside the device
+    abs_t = absorption_length_table()
+    labs = np.interp(wl, abs_t.x0 + np.arange(len(abs_t.y)) * abs_t.dx,
+                     abs_t.y)
+    u = (np.arange(4096) + 0.5) / 4096
+    keep = 1.0 - np.exp(-state.silicon.thickness_um
+                        / np.interp(u, np.linspace(0, 1, len(labs)), labs))
+    want = pcfg.counts_per_pixel * float(keep.mean())
+    log(f"[flats] photon flat {pcfg.ysize}x{pcfg.xsize}: {n_it * n_sub * per}"
+        f" photons in {n_it} x {n_sub} sub-batches of {per}: {t_p:.3f} s "
+        f"({m_p:.2f} GiB peak, launches {l_p})")
+    log(f"[flats] (k): mean {sp['mean']:.4f} against {want:.4f} (rel gap "
+        f"{sp['mean'] / want - 1:+.5f}, bar 0.015), var/mean "
+        f"{sp['var_over_mean']:.4f} (|. - 1| < 0.06)")
+    _check(abs(sp["mean"] / want - 1) <= 0.015
+           and abs(sp["var_over_mean"] - 1) < 0.06,
+           "photon flat out of bounds")
+    return dict(flat=l_f, photon_flat=l_p, flat_s=t_f, photon_flat_s=t_p)
+
+
+# ---- phase 8: object families and silicon modes ---------------------------
+
+def phase_modes(device, state, small: bool):
+    """(l) streak, FITS-cloud and knot objects through sample_intrinsic
+    on the device with host uniforms, against the CPU; (m) one analytic
+    bench batch accumulated with bf_mode 'photon' and 'image' (K3 once
+    per chunk in each).  Returns the launches of (m)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import Timer, analytic_workload
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image import render as R
+    from imsim_tpu_torch.image.scene import DeviceScene
+    from imsim_tpu_torch.ops import _build
+    from imsim_tpu_torch.sensor.silicon import (accumulate_silicon,
+                                                tree_ring_field)
+    from imsim_tpu_torch.utils.rng import stream
+
+    # (l)
+    rng = np.random.default_rng(8)
+    n_obj, n = 48, (65_536 if small else 1 << 20)
+    t = np.resize(np.array([R.KNOTS, R.STREAK, R.FITSIMAGE], np.float32),
+                  n_obj)
+    p2 = rng.uniform(0.3, 1.0, n_obj)
+    p2[t == R.FITSIMAGE] = rng.integers(1, 4, int((t == R.FITSIMAGE).sum()))
+    p0 = np.where(t == R.STREAK, rng.uniform(5, 40, n_obj),
+                  rng.uniform(0.2, 1.5, n_obj))
+    cols = [rng.uniform(50, 450, n_obj), rng.uniform(50, 450, n_obj), t, p0,
+            np.where(t == R.KNOTS, 25.0, rng.uniform(0.5, 4, n_obj)), p2,
+            rng.uniform(0, np.pi, n_obj), rng.normal(0, 0.03, n_obj),
+            rng.normal(0, 0.03, n_obj), 1 + rng.normal(0, 0.03, n_obj)]
+    cloud = np.concatenate([np.zeros((1, 1024, 2)),
+                            rng.normal(0, 0.8, (3, 1024, 2))])
+    wl = np.full((n_obj, 96), 620.0, np.float32)
+    obj = rng.integers(0, n_obj, n)
+    fam = (R.KNOTS, R.STREAK, R.FITSIMAGE)
+    draws = R.intrinsic_draws(torch.Generator().manual_seed(9), n, fam)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        sc = DeviceScene.from_columns(*cols, wl_icdf=wl, aux_cloud=cloud,
+                                      device=dev)
+        o = torch.as_tensor(obj, device=dev)
+        out[dev.type] = [a.cpu() for a in R.sample_intrinsic(
+            None, sc.params[o].T, o, state.profiles, fam, 0.2, sc.aux_cloud,
+            {k: v.to(dev) for k, v in draws.items()})]
+    scale = max(float(a.abs().max()) for a in out["cpu"])
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(out[device.type], out["cpu"]))
+    log(f"[modes] (l): {n} photons of knots, streaks and FITS clouds; "
+        f"device vs CPU {gap / scale:.3g} of max |offset| {scale:.3g} px "
+        f"(<= 1e-5)")
+    _check(gap <= 1e-5 * scale, "sample_intrinsic disagrees with the CPU")
+
+    # (m)
+    _, host, cfg = analytic_workload(device, small)
+    modes = PP.classify_objects(host, cfg, PP.make_psf_mtf(cfg))
+    cum, total, nb, N = PP.pooled_plan(host, modes, cfg)
+    pair, share = cfg.pupil_pairing, cfg.screen_share
+    cum_dev = torch.as_tensor(cum, device=device)
+    obj_map = PP.build_obj_map(cum_dev, total, nb, N, pair, share)
+    obj_idx, weight = PP.batch_from_obj_map(obj_map, total, 0, nb, N, pair,
+                                            share)
+    del obj_map
+    families = tuple(sorted(set(host.scene.params[:host.n_objects, 2].to(
+        torch.int64).tolist())))
+    mat = torch.cat([host.scene.params, host.scene.wl_cheb], dim=1)
+    photons = R.shoot(stream(0, "photons", 0, device=device), host.scene,
+                      obj_idx, weight,
+                      PP.analytic_psf_tables(cfg.fwhm, cfg.gauss_fwhm, device),
+                      state.profiles, exptime=cfg.exptime,
+                      pixel_scale=cfg.pixel_scale,
+                      row=PP.materialize_rows_T(mat, cum_dev, 0, nb, N, pair,
+                                                share), families=families)
+    del mat
+    tr = tree_ring_field(state.silicon, (cfg.ysize, cfg.xsize), device)
+    none = {k: 0 for k in _build.LAUNCHES}
+    timer = Timer(device)
+    imgs, launches = {}, {}
+    for mode in ("photon", "image"):
+        zero = torch.zeros((cfg.ysize, cfg.xsize), device=device)
+        imgs[mode], t_m, _, launches[mode] = _stage(
+            timer, f"bf_mode {mode}", lambda: accumulate_silicon(
+                photons, zero, state.silicon, nsub=cfg.nsub, tr_field=tr,
+                bf_mode=mode, gen=stream(0, "si", 0, device=device)),
+            dict(none, stencil_pair=cfg.nsub))
+        log(f"[modes] (m) bf_mode {mode}: {t_m:.3f} s, launches "
+            f"{launches[mode]}")
+    charge = {k: float(v.sum(dtype=torch.float64)) for k, v in imgs.items()}
+    rel = abs(charge["photon"] / charge["image"] - 1)
+    m2, n_star = _stacked_moments(imgs, host, modes, cfg, weight, obj_idx,
+                                  200 if small else 2000)
+    m_rel = m2["photon"] / m2["image"] - 1
+    # the bar: the modes bin the same photons with the same draws and
+    # differ in how the displacement d moves charge: per photon (the
+    # rings' exact sinusoids, BF at the nearest pixel) or by the first-
+    # order continuity update of the binned charge (the rings folded as
+    # the bilinear stride-6 field).  A star's <r^2> moves by ~2 |grad d|;
+    # the rings' gradient bounds what the two can disagree on through
+    # the rings; the BF field comes from the same charge in both, so
+    # the formulations part at second order in |d|: 1e-3 for it (4e-5
+    # on the rehearsal's scene with the rings off)
+    grad = max(float((tr[0][:, 2:] - tr[0][:, :-2]).abs().max()),
+               float((tr[1][2:] - tr[1][:-2]).abs().max())) / 2
+    bar = 2 * grad + 1e-3
+    log(f"[modes] (m): charge photon {charge['photon']:.1f} / image "
+        f"{charge['image']:.1f} (rel gap {rel:.3g} <= 1e-4); stacked <r^2> "
+        f"of {n_star} stars photon {m2['photon']:.5f} / image "
+        f"{m2['image']:.5f} px^2 (rel gap {m_rel:+.3g}, bar {bar:.3g} = "
+        f"2 x the rings' largest gradient {grad:.3g} + 1e-3)")
+    _check(rel <= 1e-4 and abs(m_rel) <= bar,
+           "bf_mode photon and image disagree")
+    return launches
+
+
+def _stacked_moments(imgs, host, modes, cfg, weight, obj_idx, min_count,
+                     r=6, max_stars=500):
+    """<r^2> [px^2] about each pooled star's own centroid in a (2r+1)^2
+    box, stacked over (at most max_stars of) the stars with at least
+    min_count photons in the batch that sit inside the frame with no
+    neighbour within 2r holding more than 2% of the star's photons (the
+    two modes bin the same photons, so the faint neighbours' light is
+    the same in both).  Returns ({mode: stacked <r^2>}, star count)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.render import POINT
+
+    n = host.n_objects
+    p = host.scene.params[:n].cpu().numpy()
+    counts = torch.bincount(obj_idx.long(), weights=weight,
+                            minlength=host.scene.n)[:n].cpu().numpy()
+    x, y = p[:, 0], p[:, 1]
+    pick = ((p[:, 2] == POINT) & (np.asarray(modes) == PP.PHOT)
+            & (counts >= min_count) & (x > 3 * r) & (x < cfg.xsize - 3 * r)
+            & (y > 3 * r) & (y < cfg.ysize - 3 * r))
+    ids = []
+    for i in np.nonzero(pick)[0]:
+        near = np.hypot(x - x[i], y - y[i]) < 2 * r
+        near[i] = False
+        if not (counts[near] > 0.02 * counts[i]).any():
+            ids.append(i)
+    ids = ids[:max_stars]
+    if not ids:
+        raise AssertionError("no pooled star for (m)")
+    out = {}
+    for mode, img in imgs.items():
+        num = den = 0.0
+        for i in ids:
+            ix, iy = int(round(float(x[i]))), int(round(float(y[i])))
+            box = img[iy - r:iy + r + 1, ix - r:ix + r + 1].double()
+            yy, xx = torch.meshgrid(
+                torch.arange(-r, r + 1, dtype=torch.float64,
+                             device=img.device),
+                torch.arange(-r, r + 1, dtype=torch.float64,
+                             device=img.device), indexing="ij")
+            w = box.sum()
+            cx, cy = (box * xx).sum() / w, (box * yy).sum() / w
+            num += float((box * ((xx - cx) ** 2 + (yy - cy) ** 2)).sum())
+            den += float(w)
+        out[mode] = num / den
+    return out, len(ids)
 
 
 def run(device, small: bool = False) -> dict:
-    """Phases 2-5 on `device`; returns the kernel report."""
+    """Phases 2-8 on `device`; returns the kernel report.  Each row's
+    `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
+    and `launches_by_path` the count on every path that drives it."""
     import torch
 
     _import_port()
@@ -603,9 +1003,23 @@ def run(device, small: bool = False) -> dict:
     state, host, cfg, ctx = workload(device, small)
     rows, nb = phase_kernels(device, state, host, cfg, ctx)
     res = phase_ccd(device, state, host, cfg, ctx, nb, small)
+    del host
+    paths = dict(bench_ccd=res["launches"])
     for row in rows:
         row["launches"] = res["launches"][row["name"]]
-    rows += phase_probes(device, small)
+    probe_rows, paths["probes"] = phase_probes(device, small)
+    rows += probe_rows
+    paths["analytic_ccd"] = phase_analytic(device, small)["cold"]["launches"]
+    flats = phase_flats(device, state, small)
+    paths["flat"], paths["photon_flat"] = flats["flat"], flats["photon_flat"]
+    modes = phase_modes(device, state, small)
+    paths["bf_mode_photon"], paths["bf_mode_image"] = (modes["photon"],
+                                                       modes["image"])
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
+                                   if c[row["name"]]}
+    log("[launches] per path: " + json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}))
     return {"kernels": rows}
 
 

@@ -1,16 +1,20 @@
-"""imsim_tpu_torch — the PyTorch/CUDA port of imsim_tpu's pooled
-full-physics CCD render.
+"""imsim_tpu_torch — the PyTorch/CUDA port of imsim_tpu's device side.
 
 The package mirrors `imsim_tpu`'s module layout where a module has a
-counterpart.  Plain tensor code is PyTorch; the three Pallas kernels on
-the pooled path are hand-written CUDA C++ for Hopper (`csrc/`, built at
-first use by `ops/_build.py`).  Every kernel wrapper launches its kernel
-for a CUDA tensor and takes its plain PyTorch twin for a CPU tensor; the
+counterpart.  Plain tensor code is PyTorch; every Pallas kernel of the
+JAX package is hand-written CUDA C++ for Hopper (`csrc/`, built at first
+use by `ops/_build.py`).  Every kernel wrapper launches its kernel for a
+CUDA tensor and takes its plain PyTorch twin for a CPU tensor; the
 caller picks the device.
 
 The package never imports JAX.  Per-CCD state built by the JAX package
 (telescope, optics context, silicon, screens, samplers) crosses as numpy
 data through `convert.py`.
 
-Entry point: `imsim_tpu_torch.image.photon_pooling.render_ccd_pooled`.
+Entry points: `image.photon_pooling.render_ccd_pooled` (the pooled CCD,
+through the optics chain or the analytic PSF), `image.ccd_render.
+render_ccd` (the unpooled analytic CCD), `image.ccd_render.
+add_sky_and_noise`, `image.cosmic_rays.paint_cosmic_rays`,
+`electronics.readout.CcdReadout.chain`, and the flats
+`image.flat.build_flat` and `build_flat_photons`.
 """

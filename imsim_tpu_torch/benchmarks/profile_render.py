@@ -12,8 +12,14 @@ fill (one stream, so they do not overlap), its idle share
 alone (the same call on an empty frame) and profiled alone, with its
 largest device kernels.
 
+--analytic runs the same bench catalog through the analytic PSF
+(`_util.analytic_workload`: render without optics, sky, cosmic rays,
+readout); --flats times and profiles the flats of chip_smoke's phase 7
+(`build_flat` at the runner's defaults, `build_flat_photons` at the cut)
+instead of a CCD.
+
 On the card, from the root of a checkout:
-    python3 -m imsim_tpu_torch.benchmarks.profile_render
+    python3 -m imsim_tpu_torch.benchmarks.profile_render [--analytic | --flats]
 Prints one JSON line.
 """
 from __future__ import annotations
@@ -51,53 +57,74 @@ def _profiled(fn) -> dict:
                              for n, us, c in rows[:8]])
 
 
-def main(warm: int = 3) -> dict:
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main(warm: int = 3, analytic: bool = False) -> dict:
     from ..image import photon_pooling as PP
     from ..image.ccd_render import add_sky_and_noise
+    from ..image.cosmic_rays import CR_RATE_DEFAULT, paint_cosmic_rays
     from ..image.diffraction_fft import spike_kernel
     from ..psf.atmosphere import make_screens
     from ..utils.rng import ATM_SEED_OFFSET, stream
-    from ._util import workload
+    from ._util import analytic_workload, workload
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: needs a CUDA device")
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    state, host, cfg, ctx = workload(device)
-    screens = make_screens(state.screen_spec, device,
-                           gen=stream(42 + ATM_SEED_OFFSET, "screens",
-                                      device=device))
+    smi = _smi()
+    if analytic:
+        state, host, cfg = analytic_workload(device)
+    else:
+        state, host, cfg, ctx = workload(device)
+        screens = make_screens(state.screen_spec, device,
+                               gen=stream(42 + ATM_SEED_OFFSET, "screens",
+                                          device=device))
     spikes = dict(kernel=spike_kernel(622.0, 0.2, alpha_deg=45.0,
                                       rot_smear_deg=0.1, device=device),
                   sat=state.readout.full_well)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    def render():
+        if analytic:
+            return PP.render_ccd_pooled(0, host, cfg, state.silicon,
+                                        profiles=state.profiles,
+                                        spikes=spikes)
+        return PP.render_ccd_pooled(
+            0, host, cfg, state.silicon, state.tel, ctx, screens,
+            state.sk_table, profiles=state.profiles, spikes=spikes)
 
     def ccd():
-        (image, _, _), t_r = timed(lambda: PP.render_ccd_pooled(
-            0, host, cfg, state.silicon, state.tel, ctx, screens,
-            state.sk_table, profiles=state.profiles, spikes=spikes))
-        eimage, t_s = timed(lambda: add_sky_and_noise(
+        (image, _, _), t_r = _timed(render)
+        eimage, t_s = _timed(lambda: add_sky_and_noise(
             stream(0, "sky", device=device), image, state.sky_level,
             (0.0, 0.0, 1.0), state.vig_coarse, cfg.pixel_scale,
             vig_step=state.vig_step))
-        _, t_o = timed(lambda: state.readout.chain(
+        t = dict(render=t_r, sky=t_s)
+        if analytic:
+            eimage, t["cosmic_rays"] = _timed(lambda: paint_cosmic_rays(
+                eimage, cfg.exptime, 189, ccd_rate=CR_RATE_DEFAULT))
+        _, t["readout"] = _timed(lambda: state.readout.chain(
             stream(0, "readout", device=device), eimage, cfg.exptime))
-        return dict(render=t_r, sky=t_s, readout=t_o, ccd=t_r + t_s + t_o)
+        t["ccd"] = sum(t.values())
+        return t
 
     psf = PP.make_psf_mtf(cfg)
     modes = PP.classify_objects(host, cfg, psf)
 
     def fft_pass():
-        return timed(lambda: PP._fft_pass(
+        return _timed(lambda: PP._fft_pass(
             torch.zeros((cfg.ysize, cfg.xsize), device=device), host, modes,
             cfg, psf, 0, spikes=spikes))[1]
 
@@ -107,16 +134,47 @@ def main(warm: int = 3) -> dict:
     prof_ccd = _profiled(lambda: ccd()["ccd"])
     prof_fft = _profiled(fft_pass)
     return dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                path="analytic" if analytic else "optics",
                 n_fft=int((modes == PP.FFT).sum()), cold=cold, warm=walls,
                 fft_pass_warm_s=fft_walls, profiled_ccd=prof_ccd,
                 profiled_fft_pass=prof_fft)
 
 
+def main_flats(warm: int = 3) -> dict:
+    """build_flat (the runner's defaults) and build_flat_photons (the
+    cut) on R22_S11's frame with the bench silicon: cold and warm wall
+    times, and one profiled warm run of each."""
+    from ..convert import load_ccd_state
+    from ..image import flat as FL
+    from ._util import flat_workload
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: needs a CUDA device")
+    device = torch.device("cuda")
+    smi = _smi()
+    sil = load_ccd_state(device=device).silicon
+    cfg, pcfg, wl = flat_workload()
+    out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    for name, fn in (("flat", lambda: FL.build_flat(1, cfg, sil, device)),
+                     ("photon_flat", lambda: FL.build_flat_photons(
+                         2, pcfg, wl, sil, device))):
+        walls = [_timed(fn)[1] for _ in range(warm + 1)]
+        out[name] = dict(cold=walls[0], warm=walls[1:],
+                         profiled=_profiled(lambda: _timed(fn)[1]))
+    return out
+
+
 def _cli():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=3)
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--analytic", action="store_true",
+                      help="the bench catalog through the analytic PSF")
+    kind.add_argument("--flats", action="store_true",
+                      help="the flats of chip_smoke's phase 7")
     a = ap.parse_args()
-    print(json.dumps(main(a.warm)))
+    print(json.dumps(main_flats(a.warm) if a.flats
+                     else main(a.warm, a.analytic)))
 
 
 if __name__ == "__main__":

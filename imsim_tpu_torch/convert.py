@@ -32,12 +32,12 @@ import numpy as np
 import torch
 
 from .electronics.readout import CcdReadout
-from .image.scene import WL_CDF_K, DeviceScene, SceneHost, fit_wl_cheb
+from .image.scene import WL_CDF_K, DeviceScene, SceneHost
 from .optics.telescope import Telescope, surf_matrix
 from .photons.optics_ops import OpticsContext
 from .photons.profiles import ProfileTables, SersicPoly
 from .psf.atmosphere import AtmScreens, ScreenSpec
-from .sensor.silicon import SiliconParams
+from .sensor.silicon import SiliconParams, absorption_length_table
 from .utils.lookup import PolyCDF
 
 BENCH_STATE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -59,12 +59,16 @@ def _f32(v) -> float:
 # ---- containers -----------------------------------------------------------
 
 def scene_from_numpy(scene, device) -> DeviceScene:
-    """DeviceScene from an object with `params` and `wl_cheb` arrays."""
-    return DeviceScene(
-        params=torch.tensor(np.asarray(scene.params, np.float32),
-                            device=device),
-        wl_cheb=torch.tensor(np.asarray(scene.wl_cheb, np.float32),
-                             device=device))
+    """DeviceScene from an object with `params` and `wl_cheb` arrays and,
+    where it has them, `wl_icdf`, `labs_icdf` and `aux_cloud`."""
+    def t(name):
+        a = getattr(scene, name, None)
+        return None if a is None else torch.tensor(
+            np.asarray(a, np.float32), device=device)
+
+    return DeviceScene(params=t("params"), wl_cheb=t("wl_cheb"),
+                       wl_icdf=t("wl_icdf"), labs_icdf=t("labs_icdf"),
+                       aux_cloud=t("aux_cloud"))
 
 
 def host_from_numpy(host, device) -> SceneHost:
@@ -72,7 +76,9 @@ def host_from_numpy(host, device) -> SceneHost:
     return SceneHost(scene=scene_from_numpy(host.scene, device),
                      flux=np.asarray(host.flux, np.float64),
                      nominal_flux=np.asarray(host.nominal_flux, np.float64),
-                     n_objects=int(host.n_objects))
+                     n_objects=int(host.n_objects),
+                     pix_x=getattr(host, "pix_x", None),
+                     pix_y=getattr(host, "pix_y", None))
 
 
 def telescope_from_numpy(tel) -> Telescope:
@@ -96,6 +102,8 @@ def silicon_from_numpy(sil) -> SiliconParams:
     waves = getattr(sil, "tr_waves", None)
     env = getattr(sil, "tr_env", None)
     center = np.asarray(sil.treering_center, np.float32)
+    abs_y = getattr(sil, "abs_y", None)
+    tr_y = getattr(sil, "treering_y", None)
     return SiliconParams(
         thickness_um=float(np.asarray(sil.thickness_um)),
         pixel_um=float(np.asarray(sil.pixel_um)),
@@ -104,7 +112,12 @@ def silicon_from_numpy(sil) -> SiliconParams:
         treering_center=(float(center[0]), float(center[1])),
         tr_waves=None if waves is None else np.asarray(waves, np.float32),
         tr_env=None if env is None else np.asarray(env, np.float32),
-        tr_active=bool(np.asarray(sil.tr_active)))
+        tr_active=bool(np.asarray(sil.tr_active)),
+        abs_y=absorption_length_table().y if abs_y is None
+        else np.array(abs_y, np.float32),
+        treering_y=None if tr_y is None else np.array(tr_y, np.float32),
+        treering_rmax=float(np.asarray(getattr(sil, "treering_rmax",
+                                               8000.0))))
 
 
 def polycdf_from_numpy(poly) -> PolyCDF:
@@ -217,21 +230,25 @@ def bench_columns(seed: int, n_obj: int, total_photons: float,
 
 
 def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
-                    total_photons=None, n_bright=None,
-                    field_angles=None) -> SceneHost:
+                    total_photons=None, n_bright=None, field_angles=None,
+                    pixel_coords: bool = False) -> SceneHost:
     """bench.build_synthetic_host's scene on `device`, with the objects'
     pixel positions.
 
     Defaults reproduce the exported bench scene with the state's field
     angles.  Another size needs `field_angles(x, y)` (pixel -> field
-    angle).  Every object keeps its drawn flux: render_ccd_pooled's
-    classifier sends the bright ones to the FFT pass."""
+    angle).  pixel_coords=True puts the pixel positions in COL_X/COL_Y
+    instead (the analytic path's scene; no field angles are needed).
+    Every object keeps its drawn flux: render_ccd_pooled's classifier
+    sends the bright ones to the FFT pass."""
     seed = state.seed if seed is None else seed
     n_obj = len(state.thx) if n_obj is None else n_obj
     total_photons = state.total_photons if total_photons is None \
         else total_photons
     n_bright = state.n_bright if n_bright is None else n_bright
-    if field_angles is None:
+    if pixel_coords:
+        field_angles = lambda x, y: (x, y)  # noqa: E731
+    elif field_angles is None:
         if (seed, n_obj, total_photons, n_bright) != (
                 state.seed, len(state.thx), state.total_photons,
                 state.n_bright):
@@ -243,17 +260,15 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
                                          field_angles)
     n_pad = int(2 ** np.ceil(np.log2(n_obj)))
     fills = dict(p1=1.0, p2=1.0, mu=1.0)
-    params = np.zeros((n_pad, 10), np.float32)
-    for i, k in enumerate(("x", "y", "obj_type", "p0", "p1", "p2", "p3",
-                           "g1", "g2", "mu")):
+    padded = {}
+    for k in ("x", "y", "obj_type", "p0", "p1", "p2", "p3", "g1", "g2", "mu"):
         col = np.full(n_pad, fills.get(k, 0.0), np.float32)
         col[:n_obj] = cols[k]
-        params[:, i] = col
+        padded[k] = col
     wl = np.linspace(552.0, 691.0, WL_CDF_K).astype(np.float32)
-    wl_cheb = fit_wl_cheb(np.broadcast_to(wl, (n_pad, WL_CDF_K)).astype(
-        np.float64))
-    scene = DeviceScene(params=torch.as_tensor(params, device=device),
-                        wl_cheb=torch.as_tensor(wl_cheb, device=device))
+    scene = DeviceScene.from_columns(
+        **padded, wl_icdf=np.broadcast_to(wl, (n_pad, WL_CDF_K)),
+        device=device)
     return SceneHost(scene=scene, flux=flux, nominal_flux=flux.copy(),
                      n_objects=n_obj, pix_x=px, pix_y=py)
 

@@ -1,10 +1,74 @@
-"""Sky and noise of one CCD (imsim_tpu/image/ccd_render.py counterpart:
-`_add_sky_and_noise`).  The analytic-PSF `render_ccd` is not ported."""
+"""One CCD through the analytic PSF, and the sky and noise of a CCD
+(imsim_tpu/image/ccd_render.py counterpart: `render_ccd`, the unpooled
+loop of consecutive photon batches through render.shoot and the ideal
+binner, and `_add_sky_and_noise`)."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
-from ..utils.rng import poisson_approx
+from ..utils.rng import poisson_approx, stream
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    xsize: int = 4096
+    ysize: int = 4096
+    exptime: float = 30.0
+    batch_size: int = 4_000_000
+    pixel_scale: float = 0.2       # arcsec/pixel
+    fwhm: float = 0.8              # atmospheric seeing FWHM (arcsec)
+    gauss_fwhm: float = 0.3        # extra instrumental gaussian (arcsec)
+    sky_level: float = 0.0         # photons/arcsec^2
+
+
+def _render_batch(gen, image, scene, obj_idx, weight, psf_tables, profiles,
+                  cfg: RenderConfig, families):
+    """One batch: render.shoot (rows gathered by obj_idx) into the
+    ideal binner."""
+    from ..sensor.simple import accumulate
+    from . import render
+
+    photons = render.shoot(gen, scene, obj_idx, weight, psf_tables,
+                           profiles, exptime=cfg.exptime,
+                           pixel_scale=cfg.pixel_scale, families=families)
+    return accumulate(photons, image)
+
+
+def render_ccd(seed: int, host, cfg: RenderConfig, *, profiles,
+               vignetting_image=None, sky_gradient=None, max_batches=None):
+    """The object photons and the sky of one CCD on the scene's device,
+    (ysize, xsize) in electrons before readout.  COL_X/COL_Y hold pixel
+    positions; profiles: the intrinsic-profile samplers.  sky_gradient:
+    an object with a, b, c and sky_level_center (the plane gradient's
+    coefficients); vignetting_image: a full-resolution factor."""
+    from .photon_pooling import analytic_psf_tables
+    from .render import ALL_FAMILIES
+    from .scene import make_photon_batches
+
+    dev = host.scene.device
+    psf_tables = analytic_psf_tables(cfg.fwhm, cfg.gauss_fwhm, dev)
+    image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
+                        device=dev)
+    for b, (obj_idx, weight) in enumerate(
+            make_photon_batches(host, cfg.batch_size, max_batches)):
+        image = _render_batch(stream(seed, "photons", b, device=dev), image,
+                              host.scene, obj_idx, weight, psf_tables,
+                              profiles, cfg, ALL_FAMILIES)
+    if cfg.sky_level > 0:
+        if sky_gradient is None:
+            abc = (0.0, 0.0, 1.0)
+        else:
+            s = sky_gradient.sky_level_center
+            abc = (sky_gradient.a / s, sky_gradient.b / s,
+                   sky_gradient.c / s)
+        vig = torch.ones((cfg.ysize, cfg.xsize), dtype=torch.float32,
+                         device=dev) if vignetting_image is None \
+            else vignetting_image
+        image = add_sky_and_noise(stream(seed, "sky", device=dev), image,
+                                  cfg.sky_level, abc, vig, cfg.pixel_scale)
+    return image
 
 
 def sky_expectation(shape, sky_per_arcsec2: float, gradient_abc, vignet_img,

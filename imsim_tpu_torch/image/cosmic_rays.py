@@ -1,0 +1,132 @@
+"""Cosmic rays (imsim_tpu/image/cosmic_rays.py counterpart, without the
+catalog's file formats).
+
+The footprint bank (muon tracks, worms, spots) and the Poisson draw of
+the CRs' number, footprints and positions are host numpy, copied from
+the JAX package so that the same seeds give bit-equal hits.  The
+painting runs on the eimage's device: the hits cross as three small
+arrays and never the 64 MB frame.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CR_RATE_DEFAULT = 0.2  # CRs / cm^2 / s
+PIXEL_CM = 10e-4       # 10 um
+
+
+def _synth_track(rng: np.random.Generator):
+    """One muon track footprint: (dx, dy, e-) along a straight line."""
+    length = rng.uniform(2.0, 40.0)
+    theta = rng.uniform(0, 2 * np.pi)
+    n = max(int(length) + 1, 2)
+    t = np.linspace(0, length, n)
+    x = t * np.cos(theta)
+    y = t * np.sin(theta)
+    core = rng.uniform(1500.0, 4000.0)
+    e = core + rng.exponential(1500.0, n)
+    return x, y, e
+
+
+def _synth_worm(rng: np.random.Generator):
+    n = rng.integers(4, 25)
+    steps = rng.normal(0, 1.0, (n, 2)).cumsum(axis=0)
+    e = rng.uniform(500.0, 3000.0, n) + rng.exponential(800.0, n)
+    return steps[:, 0], steps[:, 1], e
+
+
+def _synth_spot(rng: np.random.Generator):
+    n = rng.integers(1, 5)
+    x = rng.normal(0, 0.7, n)
+    y = rng.normal(0, 0.7, n)
+    e = rng.uniform(1000.0, 30000.0, n)
+    return x, y, e
+
+
+class CosmicRayCatalog:
+    """A bank of CR footprints, each (dx, dy, e-) float64 arrays."""
+
+    def __init__(self, footprints):
+        self.footprints = footprints
+
+    def __len__(self):
+        return len(self.footprints)
+
+    @classmethod
+    def synthesize(cls, n=1000, seed=2017):
+        """n footprints: 55% tracks, 30% worms, 15% spots."""
+        rng = np.random.default_rng(seed)
+        fps = []
+        for k in rng.uniform(0, 1, n):
+            if k < 0.55:
+                fps.append(_synth_track(rng))
+            elif k < 0.85:
+                fps.append(_synth_worm(rng))
+            else:
+                fps.append(_synth_spot(rng))
+        return cls(fps)
+
+
+_default_catalog = None
+
+
+def get_default_catalog() -> CosmicRayCatalog:
+    global _default_catalog
+    if _default_catalog is None:
+        _default_catalog = CosmicRayCatalog.synthesize()
+    return _default_catalog
+
+
+def cosmic_ray_hits(shape, exptime: float, seed: int,
+                    ccd_rate=CR_RATE_DEFAULT,
+                    catalog: CosmicRayCatalog | None = None):
+    """The in-frame hits of Poisson(rate x exptime x area) CRs at uniform
+    positions, in the JAX package's draw order: (flat pixel index int64,
+    charge float64), in painting order."""
+    catalog = catalog or get_default_catalog()
+    rng = np.random.default_rng(seed)
+    ny, nx = shape
+    area_cm2 = nx * ny * PIXEL_CM * PIXEL_CM
+    n_cr = rng.poisson(ccd_rate * exptime * area_cm2)
+    pix, charge = [], []
+    for _ in range(n_cr):
+        fx, fy, fe = catalog.footprints[rng.integers(0, len(catalog))]
+        x0 = rng.uniform(0, nx)
+        y0 = rng.uniform(0, ny)
+        ix = np.round(fx + x0).astype(int)
+        iy = np.round(fy + y0).astype(int)
+        m = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+        pix.append(iy[m].astype(np.int64) * nx + ix[m])
+        charge.append(np.asarray(fe[m], np.float64))
+    if not pix:
+        return np.zeros(0, np.int64), np.zeros(0, np.float64)
+    return np.concatenate(pix), np.concatenate(charge)
+
+
+def paint_cosmic_rays(image: torch.Tensor, exptime: float, seed: int,
+                      ccd_rate=CR_RATE_DEFAULT,
+                      catalog: CosmicRayCatalog | None = None) -> torch.Tensor:
+    """Add the CR hits of cosmic_ray_hits to the (H, W) float32 image in
+    place, on its device, and return it.  A pixel hit k times takes k
+    float64 adds, each rounded to float32, in hit order (numpy's add.at on
+    a float32 frame): one index_put_ per hit rank, each over distinct
+    pixels."""
+    pix, charge = cosmic_ray_hits(image.shape, exptime, seed, ccd_rate,
+                                  catalog)
+    if not len(pix):
+        return image
+    # rank of each hit among the earlier hits of its pixel
+    order = np.argsort(pix, kind="stable")
+    first = np.r_[True, pix[order][1:] != pix[order][:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(pix)), 0))
+    rank = np.empty(len(pix), np.int64)
+    rank[order] = np.arange(len(pix)) - start
+    flat = image.view(-1)
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        idx = torch.as_tensor(pix[sel], device=image.device)
+        add = torch.as_tensor(charge[sel], device=image.device)
+        flat.index_put_((idx,), (flat[idx].to(torch.float64) + add).to(
+            torch.float32))
+    return image

@@ -1,12 +1,14 @@
 """Pooled-photon CCD render (imsim_tpu/image/photon_pooling.py
 counterpart): classify -> FFT pass (bright stars and galaxies) ->
-photon->object map -> per batch (rows via K1, shoot_full with the K2
-chain, silicon accumulate with the K3 stencil).
+photon->object map -> per batch: rows via K1, then either the full
+optics chain (shoot_full with the K2 chain; with `tel` and `ctx`) or the
+analytic Kolmogorov x Gaussian PSF in pixels (render.shoot; without
+them), then the silicon accumulate with the K3 stencil or the ideal
+binner.
 
-Checkpointing and the analytic-PSF path are ROADMAP queue A items; a
-config that asks for the analytic PSF raises NotImplementedError.
-Batch sizes, slot layouts, the photon->object assignment and the FFT
-branch's stamp sizes and buckets are identical to the JAX package's.
+Checkpointing is a ROADMAP queue A item.  Batch sizes, slot layouts, the
+photon->object assignment and the FFT branch's stamp sizes and buckets
+are identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.scanrows import align_batch, scan_slot_prefix
+from ..photons import profiles as P
 from ..sensor.silicon import SiliconParams, accumulate_silicon
 from ..sensor.simple import accumulate
 from ..utils.rng import poisson_approx, stream
@@ -51,6 +54,10 @@ class PoolingConfig:
     # per-pixel noise variance (sky counts): the stamp-sizing folding
     # threshold noise_var / flux
     noise_var: float = 0.0
+    # the analytic path's radial PSF table (a UniformTable in arcsec,
+    # host y), in place of the Kolmogorov table at fwhm (the
+    # DoubleGaussianPSF / KolmogorovPSF families)
+    psf_table: object = None
     apply_dcr: bool = True
     apply_diffraction: bool = True
     diffraction_field_rotation: bool = True
@@ -245,6 +252,21 @@ def materialize_rows_T(params: torch.Tensor, cum: torch.Tensor, b: int,
                                                     batch_size)
 
 
+def analytic_psf_tables(fwhm: float, gauss_fwhm: float, device,
+                        psf_table=None) -> dict:
+    """The analytic path's PSF: psf_table (a UniformTable in arcsec), or
+    the Kolmogorov table scaled to fwhm, with its y on `device`, and the
+    Gaussian kick's sigma (arcsec)."""
+    if psf_table is not None:
+        tab = psf_table
+        y = torch.as_tensor(np.asarray(tab.y, np.float32), device=device)
+    else:
+        tab = P.kolmogorov_cdf()
+        y = torch.as_tensor(tab.y * fwhm, device=device)
+    return {"kolmogorov": dataclasses.replace(tab, y=y),
+            "gauss_sigma": gauss_fwhm / 2.3548200450309493}
+
+
 def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
                       silicon: SiliconParams | None = None, tel=None,
                       ctx=None, screens=None, sk_table=None, *,
@@ -252,11 +274,12 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
                       fft_vign=None, tally: dict | None = None):
     """Render one CCD eimage on the scene's device: the FFT pass over
     the bright objects, then the pooled photons through the full optics
-    chain (render.shoot_full) and, with `silicon`, the silicon sensor
-    (else the ideal binner).  Returns (image, modes, realized): realized
-    (scene.n,) float64 numpy holds the FFT pass's per-object flux and,
-    with track_realized, each object's pooled photon flux through the
-    optics.
+    chain (render.shoot_full) when `tel` and `ctx` are given, else
+    through the analytic PSF (render.shoot, COL_X/COL_Y in pixels), and,
+    with `silicon`, the silicon sensor (else the ideal binner).  Returns
+    (image, modes, realized): realized (scene.n,) float64 numpy holds the
+    FFT pass's per-object flux and, with track_realized, each object's
+    pooled photon flux (through the optics on that path).
 
     profiles: the intrinsic-profile samplers (photons.profiles.
     ProfileTables).  spikes: dict(kernel=(n, n), sat=full well) for the
@@ -265,11 +288,10 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     receives "fft" (the charge the FFT pass added), "in_frame" (the
     pooled flux binned inside the frame) and "pooled" (photons shot), as
     float64 device scalars."""
-    if tel is None or ctx is None:
-        raise NotImplementedError(
-            "the analytic-PSF path (render.shoot) is not ported yet "
-            "(ROADMAP queue A); pass tel and ctx")
     dev = host.scene.device
+    optics = tel is not None and ctx is not None
+    psf_tables = None if optics else analytic_psf_tables(
+        cfg.fwhm, cfg.gauss_fwhm, dev, cfg.psf_table)
     psf_mtf = make_psf_mtf(cfg)
     modes = classify_objects(host, cfg, psf_mtf)
     image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
@@ -291,8 +313,9 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     obj_map = build_obj_map(cum_dev, total, nb, batch_size, pair, share)
     mat = torch.cat([host.scene.params, host.scene.wl_cheb], dim=1)
     # static tree-ring field, once per CCD, folded into every batch's
-    # continuity update; the depth/diffusion displacement then fuses
-    # into the K2 chain
+    # continuity update; on the optics path the depth/diffusion
+    # displacement then fuses into the K2 chain, on the analytic path it
+    # runs per chunk in accumulate_silicon
     tr_field = None
     if silicon is not None and silicon.tr_active:
         from ..sensor.silicon import tree_ring_field
@@ -303,38 +326,48 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     for b in range(nb):
         image = _pooled_batch_step(
             stream(seed, "photons", b, device=dev),
-            stream(seed, "si", b, device=dev), obj_map, cum_dev, mat, total,
-            b, nb, batch_size, tel, ctx, screens, sk_table, silicon, image,
-            cfg, pair, share, tr_field, families, profiles, tally,
-            realized if track_realized else None)
+            stream(seed, "si", b, device=dev), host.scene, obj_map, cum_dev,
+            mat, total, b, nb, batch_size, tel, ctx, screens, sk_table,
+            psf_tables, silicon, image, cfg, pair, share, tr_field, families,
+            profiles, tally, realized if track_realized else None)
     return image, modes, realized.cpu().numpy()
 
 
-def _pooled_batch_step(gen, si_gen, obj_map, cum, mat, total, b, nb,
-                       batch_size, tel, ctx, screens, sk_table, silicon,
-                       image, cfg: PoolingConfig, pair, share, tr_field,
-                       families, profiles, tally, realized):
+def _pooled_batch_step(gen, si_gen, scene, obj_map, cum, mat, total, b, nb,
+                       batch_size, tel, ctx, screens, sk_table, psf_tables,
+                       silicon, image, cfg: PoolingConfig, pair, share,
+                       tr_field, families, profiles, tally, realized):
     obj_idx, weight = batch_from_obj_map(obj_map, total, b, nb, batch_size,
                                          pair, share)
     row = materialize_rows_T(mat, cum, b, nb, batch_size, pair, share)
-    photons = render.shoot_full(
-        gen, row, obj_idx, weight, tel, ctx, profiles, families,
-        screens=screens, sk_table=sk_table, exptime=cfg.exptime,
-        pupil_pairing=pair, screen_share=share,
-        chromatic_exponent=cfg.chromatic_exponent, wl_ref=cfg.wl_ref,
-        apply_dcr=cfg.apply_dcr, apply_diffraction=cfg.apply_diffraction,
-        diffraction_field_rotation=cfg.diffraction_field_rotation,
-        silicon=silicon, si_gen=si_gen)
+    # the optics path fuses the silicon's depth/diffusion displacement
+    # into the K2 chain; the analytic path displaces each chunk
+    fused = tel is not None and ctx is not None
+    if fused:
+        photons = render.shoot_full(
+            gen, row, obj_idx, weight, tel, ctx, profiles, families,
+            screens=screens, sk_table=sk_table, exptime=cfg.exptime,
+            pupil_pairing=pair, screen_share=share,
+            chromatic_exponent=cfg.chromatic_exponent, wl_ref=cfg.wl_ref,
+            apply_dcr=cfg.apply_dcr, apply_diffraction=cfg.apply_diffraction,
+            diffraction_field_rotation=cfg.diffraction_field_rotation,
+            silicon=silicon, si_gen=si_gen, aux_cloud=scene.aux_cloud)
+    else:
+        photons = render.shoot(
+            gen, scene, obj_idx, weight, psf_tables, profiles,
+            exptime=cfg.exptime, pixel_scale=cfg.pixel_scale, row=row,
+            families=families)
     if realized is not None:
-        # per-object flux through the optics (the reference's pooled
-        # truth accumulation): one scatter per batch
+        # per-object flux (the reference's pooled truth accumulation):
+        # one scatter per batch
         realized.index_add_(0, obj_idx, photons.flux.to(torch.float64))
     if tally is not None:
         tally["pooled"] = tally.get("pooled", 0.0) \
             + weight.sum(dtype=torch.float64)
     if silicon is not None:
         return accumulate_silicon(photons, image, silicon, nsub=cfg.nsub,
-                                  tr_field=tr_field, tally=tally)
+                                  tr_field=tr_field, tally=tally,
+                                  pre_displaced=fused, gen=si_gen)
     return accumulate(photons, image, tally)
 
 

@@ -11,7 +11,9 @@ import torch
 class PhotonBatch:
     """x, y: pixel coordinates (integers are pixel centres); flux:
     electrons (0 = dead); wavelength: nm; dxdz, dydz: slopes inside the
-    silicon; pupil_u/v: metres; time: seconds from exposure start."""
+    silicon; pupil_u/v: metres; time: seconds from exposure start;
+    abs_len: silicon absorption length [um] when the producer fetched it
+    with the wavelength (else None: the silicon looks it up)."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -22,6 +24,7 @@ class PhotonBatch:
     pupil_u: torch.Tensor
     pupil_v: torch.Tensor
     time: torch.Tensor
+    abs_len: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
@@ -29,5 +32,10 @@ class PhotonBatch:
 
     def slice(self, start: int, stop: int) -> "PhotonBatch":
         """Photons [start, stop) of every field (views, no copy)."""
-        return PhotonBatch(**{f.name: getattr(self, f.name)[start:stop]
-                              for f in dataclasses.fields(self)})
+        return PhotonBatch(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name)[start:stop]
+            for f in dataclasses.fields(self)})
+
+    def replace(self, **kw) -> "PhotonBatch":
+        return dataclasses.replace(self, **kw)

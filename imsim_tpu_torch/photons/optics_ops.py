@@ -125,8 +125,9 @@ def field_to_sensor(gen, tel, ctx: OpticsContext, thx, thy, pupil_u,
         else torch.zeros_like(thx)
     draws = None
     if silicon is not None:
-        u = rng.uniform(si_gen, n, 1e-7, 1.0)
-        draws = (u, rng.normal(si_gen, n), rng.normal(si_gen, n))
+        from ..sensor.silicon import silicon_draws
+
+        draws = silicon_draws(si_gen, n)
     out = raychain.field_to_sensor(
         tel, ctx, thx, thy, pupil_u, pupil_v, wavelength_nm, time_s, flux,
         normal, apply_dcr=apply_dcr, apply_diffraction=apply_diffraction,

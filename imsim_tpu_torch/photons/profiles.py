@@ -1,16 +1,62 @@
-"""Device-side profile samplers (imsim_tpu/photons/profiles.py
-counterpart).  The inverse-CDF fits are built on the host by the JAX
-package (profiles.sersic_poly2d, exp_disk_poly, PolyCDF.fit) and cross
-as numpy data; the port evaluates them."""
+"""Profile samplers (imsim_tpu/photons/profiles.py counterpart).
+
+The Sersic and exponential-disk inverse-CDF fits are built on the host
+by the JAX package (profiles.sersic_poly2d, exp_disk_poly, PolyCDF.fit)
+and cross as numpy data.  The radial inverse CDFs of the analytic PSF
+(`radial_cdf_from_mtf`, `kolmogorov_cdf`) are host numpy/scipy copies of
+the JAX package's, held bit-equal to them by the tests.  The samplers run
+on the device."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from scipy import special
 
 from ..utils import rng
-from ..utils.lookup import PolyCDF
+from ..utils.lookup import PolyCDF, UniformTable
+
+# ---- host: radial inverse CDFs from an MTF --------------------------------
+
+
+def _enclosed_flux_from_mtf(T, k, r):
+    """F(r) = r * int T(k) J1(k r) dk, trapezoid on the k grid, clipped
+    to [0, 1] and made monotone, normalised to F(r_max) = 1."""
+    kr = np.outer(r, k)
+    integrand = T[None, :] * special.j1(kr)
+    F = r * np.trapezoid(integrand, k, axis=1)
+    F = np.maximum.accumulate(np.clip(F, 0.0, 1.0))
+    return F / F[-1]
+
+
+def radial_cdf_from_mtf(T_func, r_max, n_r=1024, n_k=4096, k_max=None,
+                        n_table=2048) -> UniformTable:
+    """Inverse-CDF table u -> r (numpy float32 y) of an isotropic
+    profile with MTF T(k); r and k in consistent units."""
+    if k_max is None:
+        k_max = 400.0 / r_max * 50.0
+    k = np.linspace(1e-8, k_max, n_k)
+    T = T_func(k)
+    r = np.linspace(1e-6, r_max, n_r)
+    F = _enclosed_flux_from_mtf(T, k, r)
+    u = np.linspace(0.0, 1.0, n_table)
+    eps = np.arange(len(F)) * 1e-14
+    ri = np.interp(u, F + eps, r)
+    return UniformTable(0.0, 1.0 / (n_table - 1), np.asarray(ri, np.float32))
+
+
+@functools.lru_cache(maxsize=8)
+def kolmogorov_cdf(n_table: int = 2048) -> UniformTable:
+    """Inverse CDF of a Kolmogorov profile with FWHM 1:
+    T(kappa) = exp[-3.44 (0.9758834 kappa / 2 pi)^(5/3)]."""
+    c = 3.44 * (1.0 / (2 * np.pi * 0.9758834)) ** (5.0 / 3.0)
+
+    def T(k):
+        return np.exp(-c * k ** (5.0 / 3.0))
+
+    return radial_cdf_from_mtf(T, r_max=25.0, k_max=60.0, n_table=n_table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +119,19 @@ def sample_sersic_poly(u, srs_n, tab: SersicPoly):
 def sample_radial(gen, n: int, table):
     """n photons from an isotropic profile with inverse CDF `table`:
     returns (dx, dy) in the table's units."""
-    r = table(rng.uniform(gen, n))
-    theta = rng.uniform(gen, n, 0.0, 2 * np.pi)
+    return radial_offsets(table, rng.uniform(gen, n),
+                          rng.uniform(gen, n, 0.0, 2 * np.pi))
+
+
+def radial_offsets(table, u, theta):
+    """sample_radial's pure step: radius table(u) at angle theta."""
+    r = table(u)
     return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def sample_gaussian(gen, n: int, sigma: float):
+    """n offsets from a circular Gaussian of standard deviation sigma."""
+    return sigma * rng.normal(gen, n), sigma * rng.normal(gen, n)
 
 
 def apply_ellipse(dx, dy, q, beta):

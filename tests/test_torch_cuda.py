@@ -622,3 +622,192 @@ def test_readout_card_matches_cpu_without_noise(cuda):
     bar = 2 * 2002 * float(np.spacing(np.float32(r.full_well))) \
         / float(r.gains.min()) + 1e-6 * r.full_well
     assert float((out["cuda"].cpu() - out["cpu"]).abs().max()) <= bar
+
+
+# ---- the analytic path, the silicon modes, flats and cosmic rays ---------
+
+def _families_scene(dev, rng_seed=4):
+    from imsim_tpu_torch.image import render as R
+    from imsim_tpu_torch.image.scene import DeviceScene
+
+    rng = np.random.default_rng(rng_seed)
+    n = 40
+    t = np.resize(np.array([R.POINT, R.SERSIC, R.KNOTS, R.STREAK,
+                            R.FITSIMAGE], np.float32), n)
+    p2 = rng.uniform(0.3, 1.0, n)
+    p2[t == R.FITSIMAGE] = rng.integers(1, 3, int((t == R.FITSIMAGE).sum()))
+    cols = [rng.uniform(50, 450, n), rng.uniform(50, 450, n), t,
+            np.where(t == R.STREAK, 20.0, 0.6),
+            np.where(t == R.KNOTS, 25.0, rng.uniform(0.5, 4, n)), p2,
+            rng.uniform(0, np.pi, n), rng.normal(0, 0.03, n),
+            rng.normal(0, 0.03, n), 1 + rng.normal(0, 0.03, n)]
+    wl = np.sort(rng.uniform(500, 900, (n, 96)), axis=1)
+    cloud = np.concatenate([np.zeros((1, 1024, 2)),
+                            rng.normal(0, 0.8, (2, 1024, 2))])
+    return DeviceScene.from_columns(*cols, wl_icdf=wl, aux_cloud=cloud,
+                                    device=dev)
+
+
+@pytest.mark.cuda
+def test_shoot_card_matches_cpu(cuda):
+    """render.shoot with host draws injected, every family: positions to
+    1e-5 of the largest offset plus one f32 ulp of the frame
+    coordinate, the gathered wavelength and absorption length to 1e-6."""
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image import render as R
+
+    st = load_ccd_state(device="cpu")
+    n = 200_000
+    obj = np.random.default_rng(1).integers(0, 40, n)
+    draws = R.shoot_draws(torch.Generator().manual_seed(2), n,
+                          R.ALL_FAMILIES)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sc = _families_scene(dev)
+        d = {k: v.to(dev) for k, v in draws.items() if k != "intrinsic"}
+        d["intrinsic"] = {k: v.to(dev) for k, v in
+                          draws["intrinsic"].items()}
+        out[dev.type] = R.shoot(
+            None, sc, torch.as_tensor(obj, device=dev),
+            torch.ones(n, device=dev),
+            PP.analytic_psf_tables(0.7, 0.3, dev),
+            st.profiles, pixel_scale=0.2, draws=d)
+    x0 = _families_scene("cpu").params[torch.as_tensor(obj), :2].numpy()
+    for i, name in enumerate(("x", "y")):
+        a = getattr(out["cuda"], name).cpu().numpy()
+        b = getattr(out["cpu"], name).numpy()
+        bar = 1e-5 * np.abs(b - x0[:, i]).max() + np.spacing(np.float32(512))
+        assert np.abs(a - b).max() <= bar
+    for name in ("wavelength", "abs_len", "pupil_u", "time"):
+        assert _rel_gap(getattr(out["cuda"], name),
+                        getattr(out["cpu"], name)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf_mode", ["image", "photon"])
+def test_accumulate_silicon_per_chunk_card(cuda, bf_mode):
+    """The per-chunk displacement on the card: one K3 launch per chunk,
+    the image mode's charge equal to the in-frame flux binned, and the
+    deterministic part (draws injected) equal to the CPU's to 1e-5 of
+    the largest displacement plus one ulp of the frame coordinate."""
+    from imsim_tpu_torch.photons.batch import PhotonBatch
+    from imsim_tpu_torch.sensor import silicon as S
+
+    st = load_ccd_state(device="cpu")
+    sil = st.silicon
+    n, H, W = 400_000, 600, 700
+    g = torch.Generator().manual_seed(3)
+    cols = dict(x=torch.rand(n, generator=g) * W,
+                y=torch.rand(n, generator=g) * H,
+                flux=torch.ones(n) * 20,
+                wavelength=550 + torch.rand(n, generator=g) * 400,
+                dxdz=0.2 * torch.randn(n, generator=g),
+                dydz=0.2 * torch.randn(n, generator=g))
+    z = torch.zeros(n)
+    ph = {dev: PhotonBatch(**{k: v.to(dev) for k, v in cols.items()},
+                           pupil_u=z.to(dev), pupil_v=z.to(dev),
+                           time=z.to(dev)) for dev in ("cuda", "cpu")}
+    draws = S.silicon_draws(g, n)
+    disp = (0.05 * torch.randn((H, W), generator=g),
+            0.05 * torch.randn((H, W), generator=g))
+
+    def displaced(dev, d):
+        return S.apply_silicon_displacements(
+            ph[dev], sil, tuple(a.to(dev) for a in draws),
+            disp=None if d is None else tuple(a.to(dev) for a in d))
+
+    base = {dev: displaced(dev, None) for dev in ("cuda", "cpu")}
+    out = {dev: displaced(dev, disp) for dev in ("cuda", "cpu")}
+    # the BF gather reads the pixel nearest each photon: where the two
+    # devices' positions straddle a rounding boundary (one ulp apart) it
+    # reads a neighbour, so those photons are left out of the gather's
+    # check
+    xb, yb = base["cpu"].x, base["cpu"].y
+    edge = (((xb - torch.floor(xb)) - 0.5).abs() < 1e-3) \
+        | (((yb - torch.floor(yb)) - 0.5).abs() < 1e-3)
+    assert int(edge.sum()) < 0.01 * n
+    for name in ("x", "y"):
+        for res, keep in ((base, slice(None)), (out, ~edge)):
+            a = getattr(res["cuda"], name).cpu()[keep]
+            b = getattr(res["cpu"], name)[keep]
+            d0 = (b - cols[name][keep]).abs().max()
+            assert float((a - b).abs().max()) <= 1e-5 * float(d0) + float(
+                np.spacing(np.float32(W)))
+    assert torch.equal(out["cuda"].flux.cpu(), out["cpu"].flux)
+    tr = S.tree_ring_field(sil, (H, W), cuda)
+    tally = {}
+    n0 = _build.LAUNCHES["stencil_pair"]
+    img = S.accumulate_silicon(
+        ph["cuda"], torch.zeros((H, W), device=cuda), sil, nsub=4,
+        tr_field=tr, tally=tally, bf_mode=bf_mode,
+        gen=torch.Generator(device=cuda).manual_seed(5))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil_pair"] == n0 + 4
+    total = float(img.sum(dtype=torch.float64))
+    assert bool(torch.isfinite(img).all()) and total > 0.9 * 20 * n
+    if bf_mode == "image":
+        assert abs(total - float(tally["in_frame"])) <= 1e-5 * total
+
+
+@pytest.mark.cuda
+def test_render_ccd_pooled_analytic_card(cuda):
+    """The rehearsal's analytic CCD on the card: K1 once per batch, K3
+    once per chunk, K2 never; charge accounted to 1e-4."""
+    from imsim_tpu_torch.benchmarks._util import analytic_workload
+    from imsim_tpu_torch.image import photon_pooling as PP
+
+    state, host, cfg = analytic_workload(cuda, small=True)
+    _, _, nb, _ = PP.pooled_plan(host, PP.classify_objects(
+        host, cfg, PP.make_psf_mtf(cfg)), cfg)
+    tally = {}
+    _build.reset_launches()
+    img, modes, _ = PP.render_ccd_pooled(0, host, cfg, state.silicon,
+                                         profiles=state.profiles,
+                                         tally=tally)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["scan_slot_prefix"] == nb
+    assert _build.LAUNCHES["stencil_pair"] == nb * cfg.nsub
+    assert _build.LAUNCHES["field_to_sensor"] == 0
+    pooled = float(img.sum(dtype=torch.float64)) - float(tally["fft"])
+    assert abs(pooled - float(tally["in_frame"])) <= 1e-4 * pooled
+
+
+@pytest.mark.cuda
+def test_flats_card(cuda):
+    """One pixel-area iteration with injected normals equals the CPU's
+    to 1e-6 of the image; the photon flat (42M photons, three
+    sub-batches) launches K3 once per sub-batch and lands its photons."""
+    from imsim_tpu_torch.image import flat as FL
+    from imsim_tpu_torch.sensor.silicon import SiliconParams
+
+    sil = SiliconParams.make()
+    g = torch.Generator().manual_seed(6)
+    img = 3e4 + 2e4 * torch.rand((300, 333), generator=g)
+    noise = torch.randn((300, 333), generator=g)
+    a = FL._flat_iteration(None, img.to(cuda), 1000.0, sil,
+                           noise=noise.to(cuda)).cpu()
+    b = FL._flat_iteration(None, img, 1000.0, sil, noise=noise)
+    assert _rel_gap(a, b) <= 1e-6
+    cfg = FL.FlatConfig(counts_per_pixel=100.0, counts_per_iter=100.0,
+                        xsize=700, ysize=600)
+    n_iter, n_sub, _ = FL.photon_flat_plan(cfg)
+    assert (n_iter, n_sub) == (1, 3)
+    n0 = _build.LAUNCHES["stencil_pair"]
+    flat = FL.build_flat_photons(1, cfg, np.full(96, 620.0, np.float32), sil,
+                                 device=cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil_pair"] == n0 + n_sub
+    st = FL.flat_statistics(flat)
+    assert abs(st["mean"] - 100.0) < 1.0 and abs(st["var_over_mean"] - 1) \
+        < 0.06
+
+
+@pytest.mark.cuda
+def test_cosmic_rays_card_bitwise(cuda):
+    from imsim_tpu_torch.image.cosmic_rays import paint_cosmic_rays
+
+    base = 700 + 30 * torch.randn((512, 512), generator=torch.Generator()
+                                  .manual_seed(7))
+    a = paint_cosmic_rays(base.clone().to(cuda), 30.0, 3, ccd_rate=200.0)
+    b = paint_cosmic_rays(base.clone(), 30.0, 3, ccd_rate=200.0)
+    assert torch.equal(a.cpu(), b)

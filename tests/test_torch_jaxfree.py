@@ -93,6 +93,12 @@ def test_port_imports_and_renders_without_jax():
         assert f"[ccd] warm ({gate})" in res.stdout, gate
     assert "[ccd] (b)" in res.stdout and "[ccd] (c)" in res.stdout
     assert "[ccd] galaxy buckets" in res.stdout
+    # and every gate of the analytic CCD, the flats and the modes
+    for line in ("[analytic] cold (g)", "[analytic] cold (i)",
+                 "[analytic] (h)", "[flats] (j)", "[flats] (k)",
+                 "[modes] (l)", "[modes] (m)"):
+        assert line in res.stdout, line
+    assert all("launches_by_path" in row for row in report["kernels"])
 
 
 def _imported_modules(path):

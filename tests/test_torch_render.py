@@ -308,7 +308,9 @@ def test_lookup_evaluators_match_jax():
 
 def test_ideal_sensor_render_and_unported_families(corner_scene):
     """Without silicon the pooled pass bins into the ideal sensor (charge
-    accounted exactly); object families the port lacks are refused."""
+    accounted exactly).  The families and the path that used to be
+    refused now render: a streak object on the optics path, and the
+    analytic PSF when tel and ctx are left out."""
     s = corner_scene
     host = CV.host_from_numpy(s["jhost"], "cpu")
     profiles = ProfileTables(
@@ -327,8 +329,18 @@ def test_ideal_sensor_render_and_unported_families(corner_scene):
                                              rel=1e-6)
     assert float(tally["in_frame"]) > 0.9 * host.flux.sum()
     assert (modes == TPP.PHOT).all()
-    host.scene.params[3, 2] = 3.0      # a streak
-    with pytest.raises(NotImplementedError, match="streaks"):
-        TPP.render_ccd_pooled(5, host, cfg, *args, profiles=profiles)
-    with pytest.raises(NotImplementedError, match="analytic"):
-        TPP.render_ccd_pooled(5, host, cfg, profiles=profiles)
+    host.scene.params[3, 2] = 3.0      # a streak, 2 x 1 arcsec
+    host.scene.params[3, 3:6] = torch.tensor([2.0, 1.0, 0.3])
+    tally = {}
+    img = TPP.render_ccd_pooled(5, host, cfg, *args, profiles=profiles,
+                                tally=tally)[0]
+    assert float(img.sum()) == pytest.approx(float(tally["in_frame"]),
+                                             rel=1e-6)
+    # the analytic path reads COL_X/COL_Y as pixels: here field angles,
+    # so the photons land at the frame's origin corner: all but the
+    # profiles' far tails within 128 px
+    tally = {}
+    img = TPP.render_ccd_pooled(5, host, cfg, profiles=profiles,
+                                tally=tally)[0]
+    assert float(tally["in_frame"]) > 0
+    assert float(img[:128, :128].sum()) >= 0.999 * float(img.sum())

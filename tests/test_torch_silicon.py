@@ -126,8 +126,176 @@ def test_accumulate_silicon_matches_jax(sil):
     got = TS.accumulate_silicon(
         tph, torch.zeros((H, W)), tsil, nsub=4,
         tr_field=TS.tree_ring_field(tsil, (H, W), "cpu"),
-        tally=tally).numpy()
+        tally=tally, pre_displaced=True).numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     # charge conservation: image sum == in-frame flux binned
     assert abs(got.sum(dtype=np.float64) - float(tally["in_frame"])) \
         <= 1e-5 * got.sum()
+
+
+def test_silicon_host_tables_bit_equal():
+    """absorption_length_table, default_bf_kernel and SiliconParams.make
+    are copies of the JAX package's host code: bit-equal."""
+    ja, ta = JS.absorption_length_table(), TS.absorption_length_table()
+    assert (ja.x0, ja.dx) == (ta.x0, ta.dx)
+    np.testing.assert_array_equal(ta.y, np.asarray(ja.y))
+    for kw in ({}, dict(radius=3, strength=1.1), dict(strength=0.0)):
+        np.testing.assert_array_equal(TS.default_bf_kernel(**kw),
+                                      JS.default_bf_kernel(**kw))
+    model = TreeRings().get("R22_S11")
+    for kw in ({}, dict(bf_strength=1.1, diffusion_um=3.0),
+               dict(treering_model=model),
+               dict(treering_profile=np.linspace(0, 0.1, 512))):
+        j, t = JS.SiliconParams.make(**kw), TS.SiliconParams.make(**kw)
+        for name in ("bf_kernel", "abs_y", "treering_y", "tr_waves",
+                     "tr_env"):
+            a = getattr(j, name)
+            b = getattr(t, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                np.testing.assert_array_equal(b, np.asarray(a), name)
+        assert t.treering_center == tuple(
+            float(v) for v in np.asarray(j.treering_center))
+        assert (t.tr_active, t.thickness_um, t.diffusion_um, t.pixel_um) == (
+            j.tr_active, j.thickness_um, j.diffusion_um, j.pixel_um)
+    # the converter carries the tables (the bench state has none: it
+    # takes the port's own absorption table)
+    tc = CV.silicon_from_numpy(JS.SiliconParams.make(treering_model=model))
+    np.testing.assert_array_equal(tc.abs_y, ta.y)
+
+
+def _photons(rng, n, T, with_labs):
+    x = rng.uniform(-5, W + 5, n).astype(np.float32)
+    y = rng.uniform(-5, H + 5, n).astype(np.float32)
+    cols = dict(x=x, y=y, flux=np.ones(n, np.float32),
+                wavelength=rng.uniform(400, 1050, n).astype(np.float32),
+                dxdz=rng.normal(0, 0.2, n).astype(np.float32),
+                dydz=rng.normal(0, 0.2, n).astype(np.float32),
+                pupil_u=np.zeros(n, np.float32),
+                pupil_v=np.zeros(n, np.float32), time=np.zeros(n, np.float32))
+    if with_labs:
+        cols["abs_len"] = rng.uniform(0.5, 300, n).astype(np.float32)
+    return JBatch(**{k: jnp.asarray(v) for k, v in cols.items()}), \
+        TBatch(**{k: T(v) for k, v in cols.items()})
+
+
+@pytest.mark.parametrize("rings", ["waves", "table", "off"])
+@pytest.mark.parametrize("bf", [False, True])
+def test_apply_silicon_displacements_matches_jax(sil, rings, bf):
+    """The deterministic part with the JAX package's draws injected:
+    depth (photons deeper than the device lost), travel, diffusion, the
+    per-photon tree rings (analytic waves or the tabulated profile) and
+    the BF gather.  Displacements to 1e-6 of their largest plus two f32
+    ulps of the frame coordinate (the final adds round at the position's
+    scale); flux exactly."""
+    jsil, tsil = sil
+    if rings == "table":
+        jsil = JS.SiliconParams.make(treering_center=(-300.0, 150.0),
+                                     treering_profile=0.2 * np.sin(
+                                         np.linspace(0, 60, 2048)))
+        tsil = CV.silicon_from_numpy(jsil)
+    rng = np.random.default_rng(21)
+    n = 50_000
+    T = torch.as_tensor
+    jph, tph = _photons(rng, n, T, with_labs=(rings == "waves"))
+    disp = None
+    if bf:
+        disp = [rng.normal(0, 0.05, (H, W)).astype(np.float32)
+                for _ in range(2)]
+    key = jax.random.PRNGKey(4)
+    want = JS.apply_silicon_displacements(
+        key, jph, jsil, *(disp or (None, None)), treerings=rings != "off")
+    k_z, k_d = jax.random.split(key)
+    u = np.array(jax.random.uniform(k_z, (n,), minval=1e-7, maxval=1.0))
+    g = np.array(jax.random.normal(k_d, (n, 2)))
+    got = TS.apply_silicon_displacements(
+        tph, tsil, (T(u), T(g[:, 0].copy()), T(g[:, 1].copy())),
+        disp=None if disp is None else tuple(map(T, disp)),
+        treerings=rings != "off")
+    np.testing.assert_array_equal(got.flux.numpy(), np.asarray(want.flux))
+    assert 0 < float(got.flux.sum()) < n      # some photons pass through
+    for name in ("x", "y"):
+        x0 = np.asarray(getattr(jph, name))
+        w = np.asarray(getattr(want, name))
+        d = getattr(got, name).numpy() - w
+        bar = 1e-6 * np.abs(w - x0).max() + 2 * np.spacing(
+            np.float32(np.abs(w).max()))
+        assert np.abs(d).max() <= bar, (name, np.abs(d).max(), bar)
+
+
+def _spot_photons(rng, n, T):
+    """Two bright spots on a flat background, 620 nm (every photon
+    converts in the 100 um device)."""
+    cx = rng.choice([60.0, 180.0], n)
+    spot = rng.uniform(size=n) < 0.8
+    x = np.where(spot, cx + rng.normal(0, 1.5, n),
+                 rng.uniform(-10, W + 10, n)).astype(np.float32)
+    y = np.where(spot, 100 + rng.normal(0, 1.5, n),
+                 rng.uniform(-10, H + 10, n)).astype(np.float32)
+    z = np.zeros(n, np.float32)
+    cols = dict(x=x, y=y, flux=np.full(n, 40.0, np.float32),
+                wavelength=z + 620, dxdz=z, dydz=z, pupil_u=z, pupil_v=z,
+                time=z)
+    return JBatch(**{k: jnp.asarray(v) for k, v in cols.items()}), \
+        TBatch(**{k: T(v) for k, v in cols.items()})
+
+
+def _spot_moments(img, cx, r=8):
+    box = img[100 - r:100 + r + 1, int(cx) - r:int(cx) + r + 1].astype(
+        np.float64)
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    w = box.sum()
+    mx, my = (box * xx).sum() / w, (box * yy).sum() / w
+    return mx, my, (box * ((xx - mx) ** 2 + (yy - my) ** 2)).sum() / w, w
+
+
+@pytest.mark.parametrize("bf_mode", ["image", "photon"])
+def test_accumulate_silicon_displaced_per_chunk_matches_jax(sil, bf_mode):
+    """accumulate_silicon(pre_displaced=False) in both BF modes against
+    the JAX package's: different draws, so statistically.  The image
+    mode conserves the in-frame charge exactly (tally); the totals agree
+    within 3 sqrt(photons) x 40 e- + 0.5% (edge losses); each spot's
+    (16,000 photons) centroid and second moment <r^2> within 3 standard
+    errors of the difference: sqrt(<r^2> / N) per coordinate and
+    <r^2> sqrt(2 / N) (<r^2> of a 2-D Gaussian is exponential)."""
+    jsil, tsil = sil
+    rng = np.random.default_rng(9)
+    n = 40_000
+    T = torch.as_tensor
+    jph, tph = _spot_photons(rng, n, T)
+    jtr = JS.tree_ring_field(jsil, (H, W))
+    ttr = TS.tree_ring_field(tsil, (H, W), "cpu")
+    want = np.asarray(JS.accumulate_silicon(
+        jax.random.PRNGKey(1), jph, jnp.zeros((H, W), jnp.float32), jsil,
+        nsub=4, bf_mode=bf_mode, tr_field=jtr), np.float64)
+    tally = {}
+    image = torch.zeros((H, W))
+    got = TS.accumulate_silicon(
+        tph, image, tsil, nsub=4, tr_field=ttr, tally=tally,
+        bf_mode=bf_mode, gen=torch.Generator().manual_seed(1)).numpy()
+    got = got.astype(np.float64)
+    assert float(image.abs().sum()) == 0.0    # the input is not written
+    if bf_mode == "image":
+        assert abs(got.sum() - float(tally["in_frame"])) <= 1e-5 * got.sum()
+    assert abs(got.sum() - want.sum()) \
+        <= 3 * 40 * np.sqrt(n) + 0.005 * want.sum()
+    n_spot = 0.4 * n
+    for cx in (60.0, 180.0):
+        a, b = _spot_moments(got, cx), _spot_moments(want, cx)
+        sig_c = np.sqrt(b[2] / n_spot)
+        assert abs(a[0] - b[0]) <= 3 * sig_c and abs(a[1] - b[1]) <= 3 * sig_c
+        assert abs(a[2] / b[2] - 1) <= 3 * np.sqrt(2 / n_spot), (a, b)
+
+
+def test_accumulate_silicon_checks_its_mode():
+    ph = TBatch(*[torch.zeros(8)] * 9)
+    sil = TS.SiliconParams.make()
+    img = torch.zeros((16, 16))
+    with pytest.raises(ValueError, match="pre_displaced"):
+        TS.accumulate_silicon(ph, img, sil, pre_displaced=True,
+                              bf_mode="photon")
+    with pytest.raises(ValueError, match="gen"):
+        TS.accumulate_silicon(ph, img, sil)
+    with pytest.raises(ValueError, match="bf_mode"):
+        TS.accumulate_silicon(ph, img, sil, bf_mode="pixel",
+                              gen=torch.Generator())
