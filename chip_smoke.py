@@ -49,7 +49,16 @@ ok line is never printed):
      sample_intrinsic on the card with host draws, against the CPU; (m)
      one analytic bench batch accumulated in bf_mode 'photon' and
      'image' (K3 = 4 each), charge and stacked star <r^2>;
-  9. the kernel report (JSON, all eleven kernels, with bound_ms,
+  9. state from the pointing: convert.build_ccd_state builds R22_S11 at
+     the bench pointing with no exported data, gate (n) holds it leaf by
+     leaf to the exported fixture (bit-equal, field angles within 1
+     float32 ulp), with the host seconds of the build; then R10_S11
+     (ITL, 4072 x 4000, the runner's vendor BF kernel), K3 held to its
+     twin on that frame, and its bench catalog rendered from that state
+     through the optics path cold and warm (FFT stars with spikes at
+     ITL's 97,000 e- full well, sky, readout to ITL raw amps), gates
+     (a)-(f), launches under `launches_by_path["itl_ccd"]`;
+ 10. the kernel report (JSON, all eleven kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last,
      the ok line.
 
@@ -129,11 +138,9 @@ def phase_kernels(device, state, host, cfg, ctx):
     import numpy as np
     import torch
 
-    from imsim_tpu_torch.benchmarks._util import (PX_RAD, Timer, bound,
-                                                  check_kernel, conv2d_fp32)
+    from imsim_tpu_torch.benchmarks._util import PX_RAD, Timer, bound
     from imsim_tpu_torch.image import photon_pooling as PP
-    from imsim_tpu_torch.ops import raychain, scanrows, stencil
-    from imsim_tpu_torch.sensor.silicon import bf_taps
+    from imsim_tpu_torch.ops import raychain, scanrows
 
     timer = Timer(device)
     gen = torch.Generator(device=device)
@@ -236,10 +243,26 @@ def phase_kernels(device, state, host, cfg, ctx):
     del args, draws, field, ref, out
 
     # ---- K3 on a full frame ---------------------------------------------
-    H, W = cfg.ysize, cfg.xsize
+    rows.append(_k3_row(timer, gen, state.silicon, cfg.ysize, cfg.xsize,
+                        device))
+    for row in rows:
+        log_kernel(row)
+    return rows, nb
+
+
+def _k3_row(timer, gen, silicon, H, W, device, tag="K3"):
+    """K3 against its plain twin on an (H, W) frame of random charge
+    with the silicon's taps, and the one-call yardstick: the report
+    row (bar 1e-5 of max |out|)."""
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import check_kernel, conv2d_fp32
+    from imsim_tpu_torch.ops import stencil
+    from imsim_tpu_torch.sensor.silicon import bf_taps
+
     img = torch.rand((H, W), generator=gen, device=device) * 1e5
     # the render's taps: host tensors, passed by value to the kernel
-    dkx, dky = bf_taps(state.silicon)
+    dkx, dky = bf_taps(silicon)
     k = dkx.shape[0]
     # the yardstick: one float32 conv2d with both tap sets as channels
     wt = torch.stack([dkx, dky])[:, None].to(device)
@@ -249,21 +272,18 @@ def phase_kernels(device, state, host, cfg, ctx):
         (4 * k * k * H * W, 12 * H * W),
         lambda: conv2d_fp32(img[None, None], wt, padding=k // 2)[0]
         .unbind(0))
-    log(f"[K3] {H}x{W}, k={k}: max gap {r3['max_abs_err']:.3g} = "
+    log(f"[{tag}] {H}x{W}, k={k}: max gap {r3['max_abs_err']:.3g} = "
         f"{r3['max_abs_err'] / r3['scale']:.3g} of max |out| (<= 1e-5); "
         f"conv2d (TF32 off) {r3['library_err'] / r3['scale']:.3g} of max "
         f"|out| (<= 1e-5)")
     if r3["within"] > 1.0:
-        raise AssertionError("K3 disagrees with its plain twin")
-    rows.append(dict(
+        raise AssertionError(f"{tag}: K3 disagrees with its plain twin")
+    return dict(
         name="stencil_pair", route="cuda",
         source="imsim_tpu_torch/csrc/stencil.cu",
         replaces="imsim_tpu/ops/stencil.py:71",
         **{key: r3[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                    "library_ms", "bound_ms", "bound_by")}))
-    for row in rows:
-        log_kernel(row)
-    return rows, nb
+                                    "library_ms", "bound_ms", "bound_by")})
 
 
 def _stage(timer, name, fn, expect):
@@ -305,7 +325,7 @@ def _check(ok: bool, what: str):
 
 def _frame(eimage, state):
     """The eimage on the CCD's full frame: the rehearsal's 512 x 512
-    window is read out in the corner of a full E2V frame (the amp
+    window is read out in the corner of the CCD's full frame (the amp
     geometry is the vendor's)."""
     import torch
 
@@ -316,14 +336,19 @@ def _frame(eimage, state):
     return full
 
 
-def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
-    """The whole bench CCD cold then warm (render with the FFT branch and
-    spikes, sky and noise, readout), its gates, and the galaxy-bucket
-    FFT path.  Returns the render's launch counts of the cold run."""
+def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
+              tag: str = "ccd", buckets: bool = True,
+              labels=("cold", "warm")):
+    """The whole CCD cold then warm (render with the FFT branch and
+    spikes, sky and noise, readout to the vendor's raw amps), its gates,
+    and (`buckets`) the galaxy-bucket FFT path.  Log lines carry
+    `[tag]`.  Returns the render's launch counts of the cold run and the
+    stages' seconds."""
     import numpy as np
     import torch
 
     from imsim_tpu_torch.benchmarks._util import Timer
+    from imsim_tpu_torch.electronics.camera import VENDOR_SPECS
     from imsim_tpu_torch.image import photon_pooling as PP
     from imsim_tpu_torch.image.ccd_render import (add_sky_and_noise,
                                                   sky_expectation)
@@ -333,6 +358,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
 
     timer = Timer(device)
     ro = state.readout
+    spec = VENDOR_SPECS[ro.vendor]
     H, W = cfg.ysize, cfg.xsize
     screens = make_screens(state.screen_spec, device,
                            gen=stream(42 + ATM_SEED_OFFSET, "screens",
@@ -343,7 +369,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
                   stencil_pair=nb * cfg.nsub)
     grad = (0.0, 0.0, 1.0)
     result = {}
-    for label in ("cold", "warm"):
+    for label in labels:
         tally = {}
         (image, modes, realized), t_r, m_r, l_r = _stage(
             timer, "render", lambda: PP.render_ccd_pooled(
@@ -359,7 +385,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
             timer, "readout", lambda: ro.chain(
                 stream(0, "readout", device=device), _frame(eimage, state),
                 cfg.exptime), none)
-        log(f"[ccd] {label}: render {t_r:.3f} s ({m_r:.2f} GiB peak, "
+        log(f"[{tag}] {label}: render {t_r:.3f} s ({m_r:.2f} GiB peak, "
             f"launches {l_r}), sky {t_s:.3f} s ({m_s:.2f} GiB), readout "
             f"{t_o:.3f} s ({m_o:.2f} GiB); whole CCD {t_r + t_s + t_o:.3f} s")
         n_fft = int((modes == PP.FFT).sum())
@@ -375,7 +401,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
         pooled = float(tally["pooled"])
         rel = abs(pooled_img - in_frame) / max(in_frame, 1.0)
         landed = in_frame / pooled
-        log(f"[ccd] {label} (a): {n_fft} FFT objects; pooled photons "
+        log(f"[{tag}] {label} (a): {n_fft} FFT objects; pooled photons "
             f"{pooled:.0f}, in-frame flux {in_frame:.1f}, image sum less "
             f"the FFT charge {pooled_img:.1f} (rel gap {rel:.3g} <= 1e-4), "
             f"landed fraction {landed:.6f} (> 0.8)")
@@ -383,14 +409,14 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
                "charge accounting or landed fraction out of bounds")
         if label == "cold":
             gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac,
-                                   fft_sum)
+                                   tag)
             result = dict(launches=l_r, wall_cold=t_r + t_s + t_o)
         else:
             result.update(wall_warm=t_r + t_s + t_o, render=t_r, sky=t_s,
                           readout=t_o)
         # (d) the FFT noise: the added charge about the spiked field
         vis_sum = gates_fft["spiked_sum"]
-        log(f"[ccd] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
+        log(f"[{tag}] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
             f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
             f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
         _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
@@ -406,7 +432,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
         res_mean = float(res.mean())
         res_var = float(res.var())
         want_var = sky_mean + 1.0 / 12
-        log(f"[ccd] {label} (e): sky map mean {sky_mean:.3f} e-/px; added "
+        log(f"[{tag}] {label} (e): sky map mean {sky_mean:.3f} e-/px; added "
             f"minus map {res_mean:.4f} (<= 5 sigma = "
             f"{5 * np.sqrt(want_var / n_pix):.4f}); residual variance "
             f"{res_var:.3f} vs map mean + 1/12 = {want_var:.3f} "
@@ -417,17 +443,19 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool):
         del res, sky
 
         # (f) the readout: finite raw amps; prescan medians at the bias
-        pre = raw[:, :2002, :10].reshape(raw.shape[0], -1)
+        pre = raw[:, :spec["amp_ny"], :spec["prescan"]].reshape(
+            raw.shape[0], -1)
         med = pre.median(dim=1).values.cpu().numpy()
         gap = np.abs(med - ro.bias_levels.cpu().numpy())
-        log(f"[ccd] {label} (f): raw amps {tuple(raw.shape)}, prescan "
-            f"median - bias: max {gap.max():.3f} ADU (<= 0.5)")
+        log(f"[{tag}] {label} (f): {ro.vendor} raw amps {tuple(raw.shape)}, "
+            f"prescan median - bias: max {gap.max():.3f} ADU (<= 0.5)")
         _check(tuple(raw.shape) == (16, 2048, 576)
                and bool(torch.isfinite(raw).all()) and gap.max() <= 0.5,
                "raw amps not finite, of the wrong shape or off their bias")
         del image, eimage, raw
 
-    _galaxy_buckets(device, host, cfg, spikes, 2 if small else 8)
+    if buckets:
+        _galaxy_buckets(device, host, cfg, spikes, 2 if small else 8)
     return result
 
 
@@ -446,7 +474,7 @@ def _spikes(device, ro):
     return dict(kernel=kern, sat=ro.full_well), frac
 
 
-def _fft_gates(device, host, modes, cfg, spikes, frac, fft_sum):
+def _fft_gates(device, host, modes, cfg, spikes, frac, tag="ccd"):
     """Gates (b) and (c) on the star field's noiseless synthesis with the
     render's inputs; returns the spiked field's sum for gate (d)."""
     import torch
@@ -464,7 +492,7 @@ def _fft_gates(device, host, modes, cfg, spikes, frac, fft_sum):
     vis0 = float(field[p:p + H, p:p + W].sum(dtype=torch.float64))
     real = float(realized.sum(dtype=torch.float64))
     rel = vis0 / real - 1.0
-    log(f"[ccd] (b): {len(stars.ids)} stars, Npad {stars.Npad}, pad {p}; "
+    log(f"[{tag}] (b): {len(stars.ids)} stars, Npad {stars.Npad}, pad {p}; "
         f"noiseless field without spikes {vis0:.1f} vs sum realized "
         f"{real:.1f}: rel gap {rel:.4g} (bar {FFT_BAR:g}: max(1e-3, 2 x the "
         f"JAX package's {FFT_GAP_JAX:g}))")
@@ -475,7 +503,7 @@ def _fft_gates(device, host, modes, cfg, spikes, frac, fft_sum):
     spiked = F.spike_crop(field, stars.kernel, stars.sat, H, W, p, m)
     sp_sum = float(spiked.sum(dtype=torch.float64))
     bar = frac * excess * (1 + 1e-5)
-    log(f"[ccd] (c): saturation excess {excess:.1f} e-; spikes change the "
+    log(f"[{tag}] (c): saturation excess {excess:.1f} e-; spikes change the "
         f"field's sum by {sp_sum - vis0:.1f} (<= spike fraction x excess "
         f"{frac * excess:.1f}, +1e-5 for the FFT pair's rounding)")
     _check(abs(sp_sum - vis0) <= bar, "spike overlay out of bounds")
@@ -988,10 +1016,80 @@ def _stacked_moments(imgs, host, modes, cfg, weight, obj_idx, min_count,
     return out, len(ids)
 
 
+# ---- phase 9: state from the pointing ------------------------------------
+
+# the CCD that the exported fixture does not hold: ITL, 4072 x 4000
+ITL_DET = "R10_S11"
+
+
+def _build_state(det_name, device, **kw):
+    """build_ccd_state at the bench pointing; returns (state, host s,
+    per-step host s)."""
+    from imsim_tpu_torch.convert import BENCH_POINTING, build_ccd_state
+
+    steps = {}
+    t0 = time.perf_counter()
+    state = build_ccd_state(det_name, **BENCH_POINTING, device=device,
+                            timings=steps, **kw)
+    return state, time.perf_counter() - t0, steps
+
+
+def phase_pointing(device, small: bool):
+    """Gate (n): R22_S11's state built from the bench pointing equals the
+    exported fixture leaf by leaf (bit-equal; the field angles within 1
+    float32 ulp).  Then R10_S11 (ITL, 4072 x 4000), which the fixture
+    does not hold, built with the runner's silicon and rendered from
+    that state through the optics path, cold and warm, with gates (a)-(f)
+    on its frame, and K3 held to its twin once at that frame's size.
+    Returns the ITL render's launches and the seconds."""
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import Timer, workload
+    from imsim_tpu_torch.convert import load_ccd_state, state_mismatches
+    from imsim_tpu_torch.image import photon_pooling as PP
+
+    def fmt(steps):
+        return ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+
+    built, t_b, steps = _build_state("R22_S11", device)
+    log(f"[pointing] R22_S11 built from the pointing in {t_b:.3f} s of host "
+        f"time ({fmt(steps)})")
+    bad, ulp = state_mismatches(built, load_ccd_state(device=device))
+    log(f"[pointing] (n): {len(bad)} leaves differ from the exported state "
+        f"(bar: none; the field angles' largest gap {ulp} float32 ulp, "
+        f"bar 1)" + "".join(f"\n[pointing]   {k}: {v}"
+                            for k, v in bad.items()))
+    _check(not bad, "the built bench state differs from the exported one")
+    del built
+
+    state, t_i, steps = _build_state(ITL_DET, device, silicon="runner")
+    log(f"[pointing] {ITL_DET} ({state.readout.vendor}, {state.nx} x "
+        f"{state.ny}) built in {t_i:.3f} s of host time ({fmt(steps)}); "
+        f"{int((state.modes == PP.FFT).sum())} FFT objects, full well "
+        f"{state.readout.full_well:.0f} e-")
+    _check(state.readout.vendor == "ITL" and (state.nx, state.ny)
+           == (4072, 4000), f"{ITL_DET} is not the ITL frame")
+    timer = Timer(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261017)
+    H, W = (512, 512) if small else (state.ny, state.nx)
+    k3 = _k3_row(timer, gen, state.silicon, H, W, device, tag="pointing K3")
+    log_kernel(k3, f" ({ITL_DET}'s frame and vendor kernel)")
+    state, host, cfg, ctx = workload(device, small, state=state)
+    _, _, nb, _ = PP.pooled_plan(host, PP.classify_objects(
+        host, cfg, PP.make_psf_mtf(cfg)), cfg)
+    # the rehearsal renders it once: the CPU's readout takes seconds
+    res = phase_ccd(device, state, host, cfg, ctx, nb, small, tag="itl",
+                    buckets=False,
+                    labels=("cold",) if small else ("cold", "warm"))
+    return dict(res, build_s=t_b, build_itl_s=t_i, k3=k3)
+
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-8 on `device`; returns the kernel report.  Each row's
+    """Phases 2-9 on `device`; returns the kernel report.  Each row's
     `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
-    and `launches_by_path` the count on every path that drives it."""
+    and `launches_by_path` the count on every path that drives it
+    (`itl_ccd`: phase 9's CCD built from the pointing)."""
     import torch
 
     _import_port()
@@ -1015,6 +1113,8 @@ def run(device, small: bool = False) -> dict:
     modes = phase_modes(device, state, small)
     paths["bf_mode_photon"], paths["bf_mode_image"] = (modes["photon"],
                                                        modes["image"])
+    del state
+    paths["itl_ccd"] = phase_pointing(device, small)["launches"]
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if c[row["name"]]}

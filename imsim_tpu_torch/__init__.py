@@ -7,11 +7,14 @@ use by `ops/_build.py`).  Every kernel wrapper launches its kernel for a
 CUDA tensor and takes its plain PyTorch twin for a CPU tensor; the
 caller picks the device.
 
-The package never imports JAX.  Per-CCD state built by the JAX package
-(telescope, optics context, silicon, screens, samplers) crosses as numpy
-data through `convert.py`.
+The package never imports JAX.  A CCD's state (camera, WCS, telescope,
+optics context, silicon, screen spec, samplers, readout) is built from
+its pointing and detector by `convert.build_ccd_state`, on the host;
+`convert.load_ccd_state` reads the bench fixture the JAX package
+exported.
 
-Entry points: `image.photon_pooling.render_ccd_pooled` (the pooled CCD,
+Entry points: `convert.build_ccd_state`,
+`image.photon_pooling.render_ccd_pooled` (the pooled CCD,
 through the optics chain or the analytic PSF), `image.ccd_render.
 render_ccd` (the unpooled analytic CCD), `image.ccd_render.
 add_sky_and_noise`, `image.cosmic_rays.paint_cosmic_rays`,

@@ -149,10 +149,11 @@ BENCH_CFG = dict(nbatch=6, batch_size=30_000_000, pupil_pairing=4,
 PX_RAD = 0.2 / 3600 * math.pi / 180    # 1 pixel in radians
 
 
-def workload(device, small: bool = False):
-    """(state, host, cfg, ctx): the bench scene on `device`, or for a
-    rehearsal a 500-object scene around the CCD centre seen through a
-    512 x 512 detector window, with two bright stars for the FFT pass
+def workload(device, small: bool = False, state=None):
+    """(state, host, cfg, ctx): the bench scene on `device` (the bench
+    fixture's state, or `state`: the scene is its own bench catalog), or
+    for a rehearsal a 500-object scene around the CCD centre seen through
+    a 512 x 512 detector window, with two bright stars for the FFT pass
     (pixel positions scaled into the window; noise_var 0 keeps their
     stamps, and so the padded frame, small)."""
     import dataclasses
@@ -162,7 +163,8 @@ def workload(device, small: bool = False):
     from ..convert import load_ccd_state, synthetic_scene
     from ..image.photon_pooling import PoolingConfig
 
-    state = load_ccd_state(device=device)
+    if state is None:
+        state = load_ccd_state(device=device)
     if not small:
         host = synthetic_scene(state, device)
         cfg = PoolingConfig(xsize=state.nx, ysize=state.ny, **BENCH_CFG)

@@ -14,12 +14,16 @@ largest device kernels.
 
 --analytic runs the same bench catalog through the analytic PSF
 (`_util.analytic_workload`: render without optics, sky, cosmic rays,
-readout); --flats times and profiles the flats of chip_smoke's phase 7
+readout); --det NAME renders detector NAME on the optics path from the
+state `convert.build_ccd_state` builds at the bench pointing (the
+runner's silicon; the bench catalog's draws over that CCD's frame; the
+host seconds of the build reported), as chip_smoke's phase 9 does for
+R10_S11; --flats times and profiles the flats of chip_smoke's phase 7
 (`build_flat` at the runner's defaults, `build_flat_photons` at the cut)
 instead of a CCD.
 
 On the card, from the root of a checkout:
-    python3 -m imsim_tpu_torch.benchmarks.profile_render [--analytic | --flats]
+    python3 -m imsim_tpu_torch.benchmarks.profile_render [--analytic | --det R10_S11 | --flats]
 Prints one JSON line.
 """
 from __future__ import annotations
@@ -72,7 +76,7 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def main(warm: int = 3, analytic: bool = False) -> dict:
+def main(warm: int = 3, analytic: bool = False, det: str = None) -> dict:
     from ..image import photon_pooling as PP
     from ..image.ccd_render import add_sky_and_noise
     from ..image.cosmic_rays import CR_RATE_DEFAULT, paint_cosmic_rays
@@ -85,10 +89,19 @@ def main(warm: int = 3, analytic: bool = False) -> dict:
         raise SystemExit("profile_render: needs a CUDA device")
     device = torch.device("cuda")
     smi = _smi()
+    build_s = None
     if analytic:
         state, host, cfg = analytic_workload(device)
     else:
-        state, host, cfg, ctx = workload(device)
+        built = None
+        if det is not None:
+            from ..convert import BENCH_POINTING, build_ccd_state
+
+            t0 = time.perf_counter()
+            built = build_ccd_state(det, **BENCH_POINTING, device=device,
+                                    silicon="runner")
+            build_s = time.perf_counter() - t0
+        state, host, cfg, ctx = workload(device, state=built)
         screens = make_screens(state.screen_spec, device,
                                gen=stream(42 + ATM_SEED_OFFSET, "screens",
                                           device=device))
@@ -135,6 +148,8 @@ def main(warm: int = 3, analytic: bool = False) -> dict:
     prof_fft = _profiled(fft_pass)
     return dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                 path="analytic" if analytic else "optics",
+                det=state.det_name, frame=(state.ny, state.nx),
+                build_s=build_s,
                 n_fft=int((modes == PP.FFT).sum()), cold=cold, warm=walls,
                 fft_pass_warm_s=fft_walls, profiled_ccd=prof_ccd,
                 profiled_fft_pass=prof_fft)
@@ -170,11 +185,13 @@ def _cli():
     kind = ap.add_mutually_exclusive_group()
     kind.add_argument("--analytic", action="store_true",
                       help="the bench catalog through the analytic PSF")
+    kind.add_argument("--det", help="a detector on the optics path, its "
+                      "state built from the bench pointing")
     kind.add_argument("--flats", action="store_true",
                       help="the flats of chip_smoke's phase 7")
     a = ap.parse_args()
     print(json.dumps(main_flats(a.warm) if a.flats
-                     else main(a.warm, a.analytic)))
+                     else main(a.warm, a.analytic, a.det)))
 
 
 if __name__ == "__main__":

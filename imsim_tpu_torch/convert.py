@@ -1,43 +1,52 @@
-"""State carried across from the JAX package.
+"""Per-CCD state: built from the pointing and the detector, or read back
+from an exported file.
 
-The card that runs the port has no JAX, so the per-CCD state the JAX
-package builds (telescope, optics context, silicon, second-kick and
-profile samplers, screen inputs, object field angles) crosses as numpy
-data:
-
-  * `*_from_numpy` read the JAX package's containers attribute by
-    attribute (np.asarray on each leaf) and return the port's; they
-    never import JAX, so they work equally on a namespace of numpy
-    arrays loaded from disk;
-  * `load_ccd_state` reads bench.py main()'s state for R22_S11 back
-    from the committed .npz (`python tests/test_torch_state.py`, where
-    JAX is installed, writes it; the port itself never imports the JAX
-    package);
+  * `build_ccd_state` builds a CCD's state with no JAX: the camera, the
+    astrometry, the telescope and its perturbations, the float64 host
+    trace and the TAN-SIP WCS, the optics context, tree rings, the
+    silicon, the atmosphere's screen spec and second-kick table, the
+    profile tables, the readout parameters, the vignetting grid, and the
+    bench catalog's field angles and pooling modes.  Every step runs on
+    the host in numpy / float64, as in the JAX package; only the readout
+    parameters go to `device`.
+  * `load_ccd_state` reads the bench fixture: bench.py main()'s state for
+    R22_S11 as the JAX package exported it
+    (`imsim_tpu_torch/data/bench_r22_s11.npz`, written by `python
+    tests/test_torch_state.py` where JAX is installed), through the
+    `*_from_numpy` converters, which read containers attribute by
+    attribute and never import JAX;
   * `synthetic_scene` reproduces bench.build_synthetic_host's numpy
     draws with the field angles from the state.
 
-Beside the optics and sensor state, the bench CCD carries its readout
-parameters (R22_S11's gains, read noises, bias levels, crosstalk,
-vendor and full well), the bench sky level and the coarse vignetting
-grid of its sky stage.  The full-resolution fringe map stays out: it is
-host code's output at full size.
+The full-resolution fringe map stays out: it is host code's output at
+full size (the catalog half, ROADMAP A5b).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from .electronics.camera import get_camera
 from .electronics.readout import CcdReadout
+from .image.photon_pooling import PoolingConfig, classify_objects, make_psf_mtf
 from .image.scene import WL_CDF_K, DeviceScene, SceneHost
+from .image.vignetting import Vignetting
+from .optics.loader import load_telescope
 from .optics.telescope import Telescope, surf_matrix
-from .photons.optics_ops import OpticsContext
-from .photons.profiles import ProfileTables, SersicPoly
-from .psf.atmosphere import AtmScreens, ScreenSpec
-from .sensor.silicon import SiliconParams, absorption_length_table
+from .optics.wcs_factory import make_wcs_factory
+from .photons.optics_ops import OpticsContext, make_optics_context
+from .photons.profiles import (ProfileTables, SersicPoly, exp_disk_poly,
+                               sersic_poly2d)
+from .psf.atmosphere import (AtmConfig, AtmScreens, ScreenSpec,
+                             second_kick_table, screen_spec)
+from .sensor.silicon import (SiliconParams, absorption_length_table,
+                             vendor_bf_kernel)
+from .sensor.treerings import TreeRings
 from .utils.lookup import PolyCDF
 
 BENCH_STATE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -196,6 +205,18 @@ class CcdState:
     sky_level: float       # photons / arcsec^2
     vig_coarse: np.ndarray  # (gh, gw) float32 vignetting at stride vig_step
     vig_step: int
+    # the CCD's TAN-SIP WCS and the visit's WCS factory (a built state;
+    # an exported state carries neither)
+    wcs: object = None
+    wcs_factory: object = None
+
+    def field_angles(self, x, y):
+        """Pixel (x, y) -> the camera-frame field angles [rad] through
+        the CCD's own WCS (a built state only)."""
+        if self.wcs is None:
+            raise ValueError("an exported state carries no WCS; build the "
+                             "state with build_ccd_state")
+        return self.wcs_factory.icrf_to_field(*self.wcs.xy_to_radec(x, y))
 
 
 def bench_columns(seed: int, n_obj: int, total_photons: float,
@@ -255,9 +276,15 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
             raise ValueError("the state's field angles belong to its own "
                              "scene; pass field_angles for another one")
         field_angles = lambda x, y: (state.thx, state.thy)  # noqa: E731
-    cols, flux, (px, py) = bench_columns(seed, n_obj, total_photons,
-                                         n_bright, state.nx, state.ny,
-                                         field_angles)
+    cols, flux, pix = bench_columns(seed, n_obj, total_photons, n_bright,
+                                    state.nx, state.ny, field_angles)
+    return _bench_host(cols, flux, pix, device)
+
+
+def _bench_host(cols, flux, pix, device) -> SceneHost:
+    """The bench scene from bench_columns' output: columns padded to a
+    power of two, the bench's 552-691 nm wavelength inverse CDF."""
+    n_obj = len(flux)
     n_pad = int(2 ** np.ceil(np.log2(n_obj)))
     fills = dict(p1=1.0, p2=1.0, mu=1.0)
     padded = {}
@@ -270,7 +297,7 @@ def synthetic_scene(state: CcdState, device, seed=None, n_obj=None,
         **padded, wl_icdf=np.broadcast_to(wl, (n_pad, WL_CDF_K)),
         device=device)
     return SceneHost(scene=scene, flux=flux, nominal_flux=flux.copy(),
-                     n_objects=n_obj, pix_x=px, pix_y=py)
+                     n_objects=n_obj, pix_x=pix[0], pix_y=pix[1])
 
 
 def load_ccd_state(path: str = BENCH_STATE, device="cuda") -> CcdState:
@@ -304,3 +331,167 @@ def load_ccd_state(path: str = BENCH_STATE, device="cuda") -> CcdState:
         readout=readout_from_numpy(ns["ro"], device),
         sky_level=float(ns["sky"].level), vig_coarse=ns["sky"].vig,
         vig_step=int(ns["sky"].vig_step))
+
+
+# bench.py main()'s per-CCD choices (tests/test_torch_state.py _BENCH):
+# 1e5 objects, 1e8 photons, 24 bright stars, the atmosphere's seed and
+# seeing, the sky level and the sky stage's vignetting stride
+BENCH_BUILD = dict(seed=0, n_obj=100_000, total_photons=1.0e8, n_bright=24,
+                   atm_seed=42 + 271828, fwhm=0.7, sky_level=17_500.0,
+                   vig_step=32)
+# bench.py main()'s pointing: (30, -20) deg, mjd 60674.2, r band, rotator 0
+BENCH_POINTING = dict(ra=float(np.radians(30.0)), dec=float(np.radians(-20.0)),
+                      mjd=60674.2, band="r", rotTelPos=0.0)
+# the second-kick table's wavelength and the classifier's FFT threshold
+SK_WAVELENGTH_NM = 622.0
+FFT_SB_THRESH = 2e5
+
+
+def build_ccd_state(det_name: str, ra: float, dec: float, mjd: float,
+                    band: str = "r", rotTelPos: float = 0.0,
+                    perturbations=(), camera: str = "LsstCamSim",
+                    seed: int = BENCH_BUILD["seed"], device="cuda", *,
+                    atm_seed: int = BENCH_BUILD["atm_seed"],
+                    fwhm: float = BENCH_BUILD["fwhm"],
+                    sky_level: float = BENCH_BUILD["sky_level"],
+                    vig_step: int = BENCH_BUILD["vig_step"],
+                    silicon: str = "bench",
+                    timings: dict | None = None) -> CcdState:
+    """One CCD's state from its pointing and detector, with no JAX.
+
+    ra, dec: the boresight [rad]; mjd (TAI); band; rotTelPos [rad];
+    perturbations: optics.loader.load_telescope's list.  The scene is the
+    bench catalog's draws (from `seed`: 1e5 objects, 1e8 photons, 24
+    bright stars) over the CCD's frame, its field angles through the
+    CCD's own WCS.  The defaults are export_ccd_state's choices, so the
+    bench arguments (R22_S11, (30, -20) deg, mjd 60674.2, r band) give
+    the state `load_ccd_state()` reads.  silicon="bench" is
+    SiliconParams.make with the default BF kernel; "runner" is
+    config/runner.prepare_ccd's at its default sensor strength: the
+    vendor's measured kernel.  The telescope carries the detector's
+    focal-height offset, as the runner's.  `timings`, if given,
+    receives each step's host seconds."""
+    if silicon not in ("bench", "runner"):
+        raise ValueError(f"silicon must be 'bench' or 'runner', not "
+                         f"{silicon!r}")
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[name] = now - clock[0]
+        clock[0] = now
+
+    ccd = get_camera(camera)[det_name]
+    nx, ny = ccd.bounds.width, ccd.bounds.height
+    fac = make_wcs_factory(ra, dec, mjd, band=band, telescope=load_telescope(
+        band=band, perturbations=perturbations, rotTelPos=rotTelPos))
+    wcs = fac.get_wcs(ccd)
+    design = fac.telescope.for_detector(
+        det_name, z_offset=getattr(ccd, "height_mm", 0.0) * 1e-3)
+    ctx = make_optics_context(fac, ccd)
+    lap("wcs")
+
+    def field_angles(x, y):
+        return fac.icrf_to_field(*wcs.xy_to_radec(x, y))
+
+    B = BENCH_BUILD
+    cols, flux, pix = bench_columns(seed, B["n_obj"], B["total_photons"],
+                                    B["n_bright"], nx, ny, field_angles)
+    pcfg = PoolingConfig(xsize=nx, ysize=ny, fft_sb_thresh=FFT_SB_THRESH,
+                         fwhm=fwhm, noise_var=sky_level * 0.04)
+    # the classifier reads the scene's columns on the host
+    modes = classify_objects(_bench_host(cols, flux, pix, "cpu"), pcfg,
+                             make_psf_mtf(pcfg))
+    lap("scene")
+
+    sil = SiliconParams.make(treering_model=TreeRings().get(det_name))
+    if silicon == "runner":
+        sil = dataclasses.replace(sil, bf_kernel=vendor_bf_kernel(ccd.vendor))
+    atm = AtmConfig(fwhm=fwhm)
+    sk, _ = PolyCDF.fit(second_kick_table(atm, SK_WAVELENGTH_NM))
+    profiles = ProfileTables(sersic=sersic_poly2d(), exp_disk=exp_disk_poly())
+    lap("tables")
+    state = CcdState(
+        det_name=det_name, nx=nx, ny=ny, tel=design.matrix(), ctx=ctx,
+        silicon=sil, sk_table=sk, screen_spec=screen_spec(atm_seed, atm),
+        profiles=profiles, thx=np.asarray(cols["x"], np.float32),
+        thy=np.asarray(cols["y"], np.float32),
+        modes=np.asarray(modes, np.int8), seed=seed,
+        total_photons=float(B["total_photons"]), n_bright=B["n_bright"],
+        readout=CcdReadout.from_ccd(ccd, device), sky_level=float(sky_level),
+        vig_coarse=Vignetting().coarse_grid(ccd.center_mm, (ny, nx),
+                                            vig_step),
+        vig_step=vig_step, wcs=wcs, wcs_factory=fac)
+    lap("readout")
+    return state
+
+
+def _leaves(obj, path=""):
+    """(path, leaf) pairs of a state: dataclass fields and a readout's
+    attributes, recursively."""
+    if dataclasses.is_dataclass(obj):
+        items = {f.name: getattr(obj, f.name)
+                 for f in dataclasses.fields(obj)}
+    elif isinstance(obj, CcdReadout):
+        items = vars(obj)
+    else:
+        yield path, obj
+        return
+    for k, v in items.items():
+        yield from _leaves(v, f"{path}.{k}" if path else k)
+
+
+def _host(v):
+    if isinstance(v, torch.Tensor):
+        return v.cpu().numpy()
+    if isinstance(v, (tuple, list)):
+        return np.asarray(v)
+    return v
+
+
+def state_mismatches(built: CcdState, ref: CcdState):
+    """Gate (n)'s comparison, leaf by leaf: every leaf bit-equal (the
+    surface matrix, the optics context, the silicon's arrays, the second
+    kick and profile coefficients, the screen spec, the readout, the
+    vignetting grid, the modes) except the field angles, which may differ
+    by 1 float32 ulp (the torch float64 host trace rounds ~3e-16 m from
+    numpy's, which moves the WCS by ~1e-16 rad; ROADMAP C).  The
+    exported silicon carries no tabulated ring profile (the
+    render reads the rings' waves), so a missing one is skipped, as are
+    the built state's WCS and factory.
+    Returns ({path: reason}, the field angles' largest ulp gap)."""
+    skip = ("wcs", "wcs_factory")
+    a = {k: v for k, v in _leaves(built) if k not in skip}
+    b = {k: v for k, v in _leaves(ref) if k not in skip}
+    bad = {}
+    if a.keys() != b.keys():
+        bad["fields"] = f"{sorted(a.keys() ^ b.keys())}"
+    ulp = 0
+    for k in sorted(a.keys() & b.keys()):
+        x, y = _host(a[k]), _host(b[k])
+        if x is None or y is None:
+            if not (k == "silicon.treering_y" or x is y):
+                bad[k] = f"{x!r} against {y!r}"
+            continue
+        if k in ("thx", "thy"):
+            gap = np.abs(np.asarray(x, np.float32).view(np.int32).astype(
+                np.int64) - np.asarray(y, np.float32).view(np.int32))
+            ulp = max(ulp, int(gap.max()))
+            if gap.max() > 1:
+                bad[k] = f"{int(gap.max())} float32 ulps"
+            continue
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            # bitwise: same dtype, shape and bytes (-0.0 is not 0.0)
+            same = x.dtype == y.dtype and x.shape == y.shape and \
+                np.ascontiguousarray(x).tobytes() == \
+                np.ascontiguousarray(y).tobytes()
+            if not same:
+                bad[k] = (f"{x.dtype}{x.shape} against {y.dtype}{y.shape}" +
+                          (f", max gap {np.abs(x - y).max():.3g}"
+                           if x.shape == y.shape and x.dtype.kind == "f"
+                           else ""))
+        elif x != y:
+            bad[k] = f"{x!r} against {y!r}"
+    return bad, ulp

@@ -216,8 +216,8 @@ def readout_chain(gen: torch.Generator, image: torch.Tensor, gains, xtalk,
 
 
 class CcdReadout:
-    """One CCD's readout parameters on a device, from numpy arrays (the
-    JAX package builds them from its camera model; they cross as data,
+    """One CCD's readout parameters on a device: from the camera model
+    (`from_ccd`) or from numpy arrays (an exported state,
     convert.readout_from_numpy)."""
 
     def __init__(self, vendor: str, gains, read_noises, bias_levels, xtalk,
@@ -241,6 +241,27 @@ class CcdReadout:
         self.read_noises = dev(read_noises)
         self.bias_levels = dev(bias_levels)
         self.xtalk = dev(xtalk)
+
+    @classmethod
+    def from_ccd(cls, ccd, device="cuda", readout_time: float = 2.0,
+                 dark_current: float = 0.02, scti: float = 1e-6,
+                 pcti: float = 1e-6, full_well=None, read_noise=None,
+                 bias_level=None) -> "CcdReadout":
+        """The JAX package's CcdReadout(ccd, ...) parameters from a
+        camera CCD (electronics.camera): per-amp gains, read noises and
+        bias levels in amp order (or one read noise / bias level for
+        every amp), the crosstalk matrix and the CCD's full well unless
+        given."""
+        amps = [ccd[a] for a in ccd.amp_names]
+        return cls(
+            ccd.vendor, [a.gain for a in amps],
+            [read_noise if read_noise is not None else a.read_noise
+             for a in amps],
+            [bias_level if bias_level is not None else a.bias_level
+             for a in amps], ccd.xtalk,
+            full_well if full_well is not None else ccd.full_well,
+            readout_time=readout_time, dark_current=dark_current,
+            scti=scti, pcti=pcti, device=device)
 
     def chain(self, gen: torch.Generator, eimage: torch.Tensor,
               exptime: float = 30.0) -> torch.Tensor:

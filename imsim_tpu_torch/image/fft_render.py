@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from scipy import special
 
+from ..photons.profiles import annulus_mtf
 from ..psf.atmosphere import vonkarman_structure
 from ..utils.lookup import UniformTable, clenshaw_const
 
@@ -74,21 +75,7 @@ def airy_mtf_table(lam_nm: float, diam_m: float = 8.36,
     """Annular-pupil MTF; k in rad/arcsec."""
     arcsec = np.pi / 180 / 3600
     lam = lam_nm * 1e-9
-    n = 512
-    x = np.linspace(-1, 1, n)
-    X, Y = np.meshgrid(x, x)
-    R = np.hypot(X, Y)
-    pupil = ((R <= 1.0) & (R >= obscuration)).astype(float)
-    ac = np.fft.fftshift(np.fft.irfft2(
-        np.abs(np.fft.rfft2(pupil)) ** 2, s=pupil.shape))
-    ac /= ac.max()
-    cy = n // 2
-    prof_r = np.hypot(*np.meshgrid(np.arange(n) - cy, np.arange(n) - cy))
-    nbin = 256
-    idx = np.minimum((prof_r / (n / 2) * nbin).astype(int), 2 * nbin)
-    Tr = np.bincount(idx.ravel(), ac.ravel(), minlength=2 * nbin + 1) \
-        / np.maximum(np.bincount(idx.ravel(), minlength=2 * nbin + 1), 1)
-    nu = np.arange(2 * nbin + 1) / (2 * nbin) * (diam_m / lam)
+    nu, Tr = annulus_mtf(lam, diam_m, obscuration)
     k_cut = 2 * np.pi * (diam_m / lam) * arcsec
     k = np.linspace(0.0, 1.05 * k_cut, n_k)
     T = np.interp((k / arcsec) / (2 * np.pi), nu, Tr, right=0.0)

@@ -97,6 +97,9 @@ def chain_params(tel, ctx: OpticsContext, apply_dcr: bool,
     then rounded to float32 (the reference folds the same python-float
     subexpressions at trace time)."""
     S = len(tel.kinds)
+    if tel.surf.dtype != np.float32:
+        raise ValueError(f"the chain reads the float32 surface matrix, not "
+                         f"{tel.surf.dtype} (TelescopeDesign.matrix())")
     newton = [tel.newton_steps(i) for i in range(S)]
     if S > MAX_SURF or tel.surf.shape[1] != TEL_W \
             or not all(1 <= n <= MAX_NEWTON for n in newton):

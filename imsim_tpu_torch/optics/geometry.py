@@ -1,8 +1,9 @@
 """Ray-surface math on torch tensors (imsim_tpu/optics/geometry.py
 counterpart, photon path only).
 
-Every function is elementwise over ray tensors of shape (N,); surface
-constants (c, kappa, coefs) are python floats.  The operation order is
+Every function is elementwise over ray tensors of shape (N,), float32
+on the photon path or float64 CPU tensors in the host trace (the WCS);
+surface constants (c, kappa, coefs) are python floats.  The operation order is
 the reference's, so python-float subexpressions such as (1 + kappa) c^2
 are evaluated in float64 and rounded once where they meet a float32
 tensor, as there.
@@ -144,8 +145,10 @@ def silica_index(wavelength_nm):
 def air_index_excess(wavelength_nm, pressure_kpa=69.33,
                      temperature_k=293.15, h2o_pressure_kpa=1.0):
     """n_air - 1 (Edlen-style formula, GalSim's DCR parametrization),
-    returned as the excess so float32 never computes (1 + 2.7e-4) - 1."""
-    sigma2 = (1000.0 / torch.as_tensor(wavelength_nm)) ** 2  # 1/um^2
+    returned as the excess so float32 never computes (1 + 2.7e-4) - 1.
+    `wavelength_nm` is a tensor, or a float for the host's float64
+    refraction coefficients (optics.astrometry)."""
+    sigma2 = (1000.0 / wavelength_nm) ** 2  # 1/um^2
     # dry air at 15C, 101.325 kPa
     n_m1e6 = 64.328 + 29498.1 / (146.0 - sigma2) + 255.4 / (41.0 - sigma2)
     p_mbar = pressure_kpa * 10.0

@@ -1,7 +1,13 @@
 """Sequential ray trace through the telescope on torch tensors
-(imsim_tpu/optics/trace.py counterpart, photon path only: no Zernike
-textures, no optical path).  Vignetting is a flag; the caller zeroes the
-flux of flagged rays."""
+(imsim_tpu/optics/trace.py counterpart; no Zernike textures, no optical
+path).  Vignetting is a flag; the caller zeroes the flux of flagged rays.
+
+The same code runs the photon chain's plain twin on float32 tensors
+with the float32 surface matrix, and the host trace behind the WCS
+(optics.wcs_factory) on float64 CPU tensors with the float64 matrix
+(`TelescopeDesign.host`), as the JAX package runs its trace with
+`xp=numpy`: the operations and their order are the same, so the float64
+trace agrees with the JAX package's to rounding."""
 from __future__ import annotations
 
 import torch

@@ -26,8 +26,8 @@ FOCAL_FRAME = ((0.0, 1.0), (-1.0, 0.0))
 @dataclasses.dataclass(frozen=True)
 class OpticsContext:
     """Per-visit scalars of the photon chain (float32 values held as
-    python floats; built by the JAX package's make_optics_context and
-    carried across by convert.optics_context_from_numpy)."""
+    python floats; built by `make_optics_context` from a WCS factory, or
+    read from an exported state by convert.optics_context_from_numpy)."""
 
     bore_alt: float       # observed boresight altitude [rad]
     bore_az: float
@@ -47,6 +47,35 @@ class OpticsContext:
     pressure_kpa: float
     temperature_k: float
     h2o_kpa: float
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def make_optics_context(wcs_factory, ccd) -> OpticsContext:
+    """The visit's scalars for one CCD, on the host: the observed
+    boresight, the alt-az -> camera field Jacobian measured from the
+    factory's own observed -> field chain (so DCR and spider kicks land
+    where the written WCS expects them), the rotator, the refraction
+    coefficients at the WCS wavelength (the weather the Observation
+    used) and the detector's place and yaw, each rounded to float32 as
+    the JAX package's make_optics_context rounds them."""
+    obs = wcs_factory.obs
+    J = wcs_factory.altaz_to_field_jacobian()
+    rtp = wcs_factory.telescope.rotTelPos
+    yaw = np.radians(getattr(ccd, "rot_deg", 0.0))
+    return OpticsContext(
+        bore_alt=_f32(obs.bore_alt), bore_az=_f32(obs.bore_az),
+        j01=_f32(J[0, 1]), j11=_f32(J[1, 1]),
+        crot=_f32(np.cos(rtp)), srot=_f32(np.sin(rtp)),
+        k1_ref=_f32(obs.k1), k2_ref=_f32(obs.k2),
+        det_cx_mm=_f32(ccd.center_mm[0]), det_cy_mm=_f32(ccd.center_mm[1]),
+        det_crot=_f32(np.cos(yaw)), det_srot=_f32(np.sin(yaw)),
+        det_nx=ccd.bounds.width, det_ny=ccd.bounds.height,
+        latitude=float(obs.lat), pressure_kpa=float(obs.pressure_kpa),
+        temperature_k=float(obs.temperature_k),
+        h2o_kpa=float(obs.h2o_pressure_kpa))
 
 
 def dcr_kick(ctx: OpticsContext, thx, thy, wavelength_nm):

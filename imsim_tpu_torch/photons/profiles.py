@@ -1,11 +1,12 @@
 """Profile samplers (imsim_tpu/photons/profiles.py counterpart).
 
-The Sersic and exponential-disk inverse-CDF fits are built on the host
-by the JAX package (profiles.sersic_poly2d, exp_disk_poly, PolyCDF.fit)
-and cross as numpy data.  The radial inverse CDFs of the analytic PSF
-(`radial_cdf_from_mtf`, `kolmogorov_cdf`) are host numpy/scipy copies of
-the JAX package's, held bit-equal to them by the tests.  The samplers run
-on the device."""
+Host half (numpy/scipy copies of the JAX package's, held bit-equal to
+them by the tests; cached as numpy, never as a device tensor): the
+radial inverse CDFs (`radial_cdf_from_mtf`, `kolmogorov_cdf`,
+`vonkarman_cdf`, `airy_cdf`, `second_kick_cdf`), the Sersic grid and its
+2-D Chebyshev fit (`sersic_cdf_grid`, `sersic_poly2d`) and the
+exponential disk's PolyCDF (`exp_disk_poly`).  The samplers run on the
+device."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 from scipy import special
 
+from ..psf.atmosphere import vonkarman_phase_spectrum, vonkarman_structure
 from ..utils import rng
 from ..utils.lookup import PolyCDF, UniformTable
 
@@ -59,6 +61,124 @@ def kolmogorov_cdf(n_table: int = 2048) -> UniformTable:
     return radial_cdf_from_mtf(T, r_max=25.0, k_max=60.0, n_table=n_table)
 
 
+@functools.lru_cache(maxsize=64)
+def vonkarman_cdf(lam_nm: float, r0_m: float, L0_m: float = 25.0,
+                  n_table: int = 2048) -> UniformTable:
+    """Inverse CDF (arcsec) of a von Karman atmospheric PSF."""
+    lam = lam_nm * 1e-9
+    rho = np.geomspace(1e-4, 30.0, 512)  # meters
+    D = vonkarman_structure(rho, r0_m, L0_m)
+    arcsec = np.pi / 180.0 / 3600.0
+
+    # T(k_angular) = exp(-D(lambda k / 2 pi)/2), k in rad^-1
+    def T(k_arcsec):
+        k_rad = k_arcsec / arcsec
+        return np.exp(-0.5 * np.interp(lam * k_rad / (2 * np.pi), rho, D,
+                                       left=0.0))
+
+    fwhm_kolm = 0.9758834 * lam / r0_m / arcsec
+    return radial_cdf_from_mtf(T, r_max=25.0 * fwhm_kolm,
+                               k_max=60.0 / fwhm_kolm, n_table=n_table)
+
+
+def annulus_mtf(lam: float, diam_m: float, obscuration: float):
+    """Radial profile of an annular pupil's normalized autocorrelation:
+    (nu_axis [cycles/rad], T) on 2 * 256 + 1 bins."""
+    n = 512
+    x = np.linspace(-1, 1, n)
+    X, Y = np.meshgrid(x, x)
+    R = np.hypot(X, Y)
+    pupil = ((R <= 1.0) & (R >= obscuration)).astype(float)
+    P = np.fft.rfft2(pupil)
+    ac = np.fft.fftshift(np.fft.irfft2(np.abs(P) ** 2, s=pupil.shape))
+    ac /= ac.max()
+    cy = n // 2
+    prof_r = np.hypot(*np.meshgrid(np.arange(n) - cy, np.arange(n) - cy))
+    nbin = 256
+    idx = np.minimum((prof_r / (n / 2) * nbin).astype(int), nbin * 2)
+    Tr = np.bincount(idx.ravel(), ac.ravel(), minlength=nbin * 2 + 1)
+    Tc = np.bincount(idx.ravel(), minlength=nbin * 2 + 1)
+    Tr = Tr / np.maximum(Tc, 1)
+    return np.arange(nbin * 2 + 1) / (2 * nbin) * (diam_m / lam), Tr
+
+
+@functools.lru_cache(maxsize=64)
+def airy_cdf(lam_nm: float, diam_m: float = 8.36, obscuration: float = 0.612,
+             n_table: int = 2048) -> UniformTable:
+    """Inverse CDF (arcsec) of an obscured Airy PSF."""
+    lam = lam_nm * 1e-9
+    arcsec = np.pi / 180.0 / 3600.0
+    nu_axis, Tr = annulus_mtf(lam, diam_m, obscuration)
+
+    def T(k_arcsec):
+        # k is angular frequency [rad/arcsec]: nu = k / (2 pi)
+        return np.interp((k_arcsec / arcsec) / (2 * np.pi), nu_axis, Tr,
+                         right=0.0)
+
+    lam_over_D = lam / diam_m / arcsec  # arcsec
+    return radial_cdf_from_mtf(T, r_max=80.0 * lam_over_D,
+                               k_max=2 * np.pi * 1.05 / lam_over_D,
+                               n_table=n_table)
+
+
+@functools.lru_cache(maxsize=64)
+def second_kick_cdf(lam_nm: float, r0_m: float, diam_m: float = 8.36,
+                    obscuration: float = 0.612, kcrit: float = 0.2,
+                    L0_m: float = 25.0, n_table: int = 2048) -> UniformTable:
+    """Inverse CDF (arcsec) of the atmospheric second kick: the obscured
+    Airy diffraction times the high-k tail of the von Karman turbulence
+    that the phase screens do not carry (split at kcrit / r0 [rad/m]):
+    T_2k(k) = T_airy(k) exp(-[D_full(rho) - D_lowk(rho)] / 2)."""
+    lam = lam_nm * 1e-9
+    arcsec = np.pi / 180.0 / 3600.0
+    kc = kcrit / r0_m
+
+    kgrid = np.geomspace(1e-4, 1e4, 4096)
+    Phi = vonkarman_phase_spectrum(kgrid, r0_m, L0_m)
+    hi = kgrid >= kc
+    rho = np.geomspace(1e-5, 30.0, 512)
+    J = special.j0(np.outer(rho, kgrid))
+    D_hi = 2.0 * np.trapezoid(
+        (1.0 - J[:, hi]) * (Phi[hi] * kgrid[hi])[None, :], kgrid[hi], axis=1)
+    nu_axis, Tr = annulus_mtf(lam, diam_m, obscuration)
+
+    def T(k_arcsec):
+        k_rad = k_arcsec / arcsec
+        t_airy = np.interp(k_rad / (2 * np.pi), nu_axis, Tr, right=0.0)
+        d_hi = np.interp(lam * k_rad / (2 * np.pi), rho, D_hi, left=0.0)
+        return t_airy * np.exp(-0.5 * d_hi)
+
+    lam_over_D = lam / diam_m / arcsec
+    r_max = max(80.0 * lam_over_D, 3.0 * 0.9758834 * lam / r0_m / arcsec)
+    return radial_cdf_from_mtf(T, r_max=r_max,
+                               k_max=2 * np.pi * 1.05 / lam_over_D,
+                               n_table=n_table)
+
+
+# ---- host: the Sersic family ----------------------------------------------
+
+SERSIC_N_GRID = np.linspace(0.3, 6.3, 61)
+
+
+def _sersic_b(n):
+    """Solve gammainc(2n, b) = 0.5 (half-light radius definition)."""
+    return special.gammaincinv(2 * n, 0.5)
+
+
+@functools.lru_cache(maxsize=4)
+def sersic_cdf_grid(n_u: int = 1024) -> np.ndarray:
+    """(len(SERSIC_N_GRID), n_u) float32 table of x = r/Re as a function
+    of (n, u): the inverse of F(x) = gammainc(2n, b x^(1/n)), u capped
+    at the 0.9999 quantile."""
+    grid = np.empty((len(SERSIC_N_GRID), n_u), np.float32)
+    u = np.linspace(0.0, 0.9999, n_u)
+    for i, n in enumerate(SERSIC_N_GRID):
+        b = _sersic_b(n)
+        g = special.gammaincinv(2 * n, u)
+        grid[i] = (g / b) ** n
+    return grid
+
+
 @dataclasses.dataclass(frozen=True)
 class SersicPoly:
     """2-D Chebyshev inverse CDF x = r/Re of the Sersic family: u-series
@@ -72,6 +192,56 @@ class SersicPoly:
     u_split: float
     s_lo: float
     s_hi: float
+
+
+@functools.lru_cache(maxsize=2)
+def sersic_poly2d(d_core=16, d_tail=10, d_n=10, u_split=0.85,
+                  u_max=0.9999) -> SersicPoly:
+    """The 2-D inverse CDF of the Sersic family: x(u, n) as
+    Chebyshev-in-u (the PolyCDF core/tail split) whose coefficients are
+    Chebyshev series in the index n over SERSIC_N_GRID (the JAX
+    package's sersic_poly2d, returned as a SersicPoly)."""
+    import numpy.polynomial.chebyshev as C
+
+    n_lo, n_hi = float(SERSIC_N_GRID[0]), float(SERSIC_N_GRID[-1])
+    s_lo = -np.log1p(-u_split)
+    s_hi = -np.log1p(-u_max)
+    x = np.linspace(-1, 1, 2048)
+    u_core = u_split * ((x + 1) / 2) ** 2
+    t = np.linspace(-1, 1, 2048)
+    s = s_lo + (t + 1) / 2 * (s_hi - s_lo)
+    u_tail = -np.expm1(-s)
+    cores = []
+    tails = []
+    for n in SERSIC_N_GRID:
+        b = _sersic_b(n)
+        r_core = (special.gammaincinv(2 * n, u_core) / b) ** n
+        r_tail = (special.gammaincinv(2 * n, u_tail) / b) ** n
+        cores.append(C.chebfit(x, r_core, d_core))
+        tails.append(C.chebfit(t, np.log(np.maximum(r_tail, 1e-12)),
+                               d_tail))
+    xn = 2 * (np.asarray(SERSIC_N_GRID) - n_lo) / (n_hi - n_lo) - 1
+    D_core = np.stack([C.chebfit(xn, np.array(cores)[:, j], d_n)
+                       for j in range(d_core + 1)])
+    D_tail = np.stack([C.chebfit(xn, np.array(tails)[:, j], d_n)
+                       for j in range(d_tail + 1)])
+    return SersicPoly(D_core.astype(np.float32), D_tail.astype(np.float32),
+                      n_lo, n_hi, float(u_split), float(s_lo), float(s_hi))
+
+
+@functools.lru_cache(maxsize=2)
+def exp_disk_poly() -> PolyCDF:
+    """Inverse CDF of the exponential disk (Sersic n = 1): the PolyCDF
+    fit of the n = 1 row of the Sersic grid."""
+    grid = sersic_cdf_grid()
+    row = int(round((1.0 - SERSIC_N_GRID[0])
+                    / (SERSIC_N_GRID[1] - SERSIC_N_GRID[0])))
+    tab = UniformTable(0.0, 0.9999 / (grid.shape[1] - 1),
+                       np.asarray(grid[row]))
+    poly, err = PolyCDF.fit(tab)
+    if not err < 0.35:
+        raise ValueError(f"exponential-disk fit error {err}")
+    return poly
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,12 @@
 """Atmospheric PSF: frozen-flow von Karman phase screens on the device
 (imsim_tpu/psf/atmosphere.py counterpart).
 
-The host draws the layer weights, winds and r0 exactly as the JAX
-package does (the state carries them as numpy data, `ScreenSpec`); the
-port synthesizes each layer as one FFT of filtered complex noise drawn
-from a torch generator (or passed in, for parity tests) and samples the
-OPD-gradient texels per photon (the first kick).
+The host draws the layer weights and winds and solves r0 exactly as the
+JAX package does (`screen_spec`: the numpy draws of its make_screens,
+in their order) and builds the second-kick table (`second_kick_table`);
+the port synthesizes each layer as one FFT of filtered complex noise
+drawn from a torch generator (or passed in, for parity tests) and
+samples the OPD-gradient texels per photon (the first kick).
 """
 from __future__ import annotations
 
@@ -16,8 +17,51 @@ import numpy as np
 import torch
 from scipy import special
 
-# Ellerbroek-style layer altitudes (km)
+# Ellerbroek-style layer altitudes (km) and mean weights
 LAYER_ALTITUDES_KM = np.array([0.0, 2.58, 5.16, 7.73, 12.89, 15.46])
+LAYER_WEIGHTS = np.array([0.652, 0.172, 0.055, 0.025, 0.074, 0.022])
+
+
+def vk_fwhm_factor(r0, L0):
+    """von Karman FWHM / Kolmogorov FWHM (Tokovinin 2002 approximation)."""
+    x = 2.183 * (r0 / L0) ** 0.356
+    return np.sqrt(max(1.0 - x, 1e-4))
+
+
+def solve_r0_500(fwhm_arcsec, L0=25.0):
+    """Invert fwhm = 0.9758834 * lam/r0 * vk_factor(r0, L0) at 500nm by
+    bisection."""
+    arcsec = np.pi / 180 / 3600
+    lam = 500e-9
+
+    def fwhm_of(r0):
+        return 0.9758834 * lam / r0 / arcsec * vk_fwhm_factor(r0, L0)
+
+    lo, hi = 0.01, 2.0
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        if fwhm_of(mid) > fwhm_arcsec:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
+@dataclasses.dataclass
+class AtmConfig:
+    fwhm: float = 0.8            # target seeing at 500nm, zenith (arcsec)
+    L0: float = 25.0             # outer scale (m)
+    kcrit: float = 0.2           # first/second kick split (units 1/r0)
+    screen_size: float = 819.2   # m
+    # screens only hold k < kcrit ~ 1.4 rad/m (the high-k tail is the
+    # analytic second kick), so 0.8 m texels oversample Nyquist ~2.8x
+    screen_scale: float = 0.8    # m
+    nlayers: int = 6
+    altitude_deg: float = 90.0   # for airmass scaling of r0
+    exptime: float = 30.0
+    # exposure start time offset (s) against the frozen-flow screens'
+    # origin: the screens advect by wind * (t0 + t)
+    t0: float = 0.0
 
 
 @lru_cache(maxsize=1)
@@ -91,6 +135,40 @@ class AtmScreens:
     size: float
     t0: float = 0.0
     weights: tuple | None = None
+
+
+def screen_spec(seed: int, cfg: AtmConfig) -> ScreenSpec:
+    """The host half of the JAX package's make_screens: randomized layer
+    weights, r0 scaled by airmass and per layer, and winds, drawn from
+    np.random.default_rng(seed) in its order (weights, then speeds, then
+    directions).  The screens' noise itself is the port's own draw
+    (make_screens)."""
+    rng = np.random.default_rng(seed)
+    w = LAYER_WEIGHTS * rng.uniform(0.75, 1.25, len(LAYER_WEIGHTS))
+    w = w[: cfg.nlayers]
+    w /= w.sum()
+    airmass = 1.0 / max(np.sin(np.radians(cfg.altitude_deg)), 0.1)
+    r0_500 = solve_r0_500(cfg.fwhm, cfg.L0) * airmass ** (-3.0 / 5.0)
+    speeds = rng.uniform(0.0, 20.0, cfg.nlayers)
+    dirs = rng.uniform(0.0, 2 * np.pi, cfg.nlayers)
+    winds = np.stack([speeds * np.cos(dirs), speeds * np.sin(dirs)], -1)
+    return ScreenSpec(weights=tuple(float(x) for x in w),
+                      winds=np.asarray(winds, np.float32),
+                      r0_layer=r0_500 * w ** (-3.0 / 5.0), L0=cfg.L0,
+                      kcrit_rad=cfg.kcrit / r0_500, size=cfg.screen_size,
+                      scale=cfg.screen_scale, t0=cfg.t0)
+
+
+def second_kick_table(cfg: AtmConfig, lam_nm: float, diam=8.36,
+                      obscuration=0.612):
+    """Inverse CDF of the second kick at `lam_nm` for cfg's seeing
+    (zenith r0 scaled to the wavelength)."""
+    from ..photons.profiles import second_kick_cdf
+
+    r0_500 = solve_r0_500(cfg.fwhm, cfg.L0)
+    r0 = r0_500 * (lam_nm / 500.0) ** (6.0 / 5.0)
+    return second_kick_cdf(float(lam_nm), float(r0), diam, obscuration,
+                           cfg.kcrit, cfg.L0)
 
 
 def screen_noise(gen: torch.Generator, n_layers: int, n: int):

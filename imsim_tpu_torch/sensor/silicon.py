@@ -15,6 +15,7 @@ the flats).
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -72,6 +73,36 @@ def default_bf_kernel(radius=4, strength=0.4) -> np.ndarray:
     rr = np.hypot(X, Y)
     K = strength / np.sqrt(rr**2 + 0.8**2)
     return (K / 1e5).astype(np.float32)
+
+
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data")
+
+
+@lru_cache(maxsize=8)
+def vendor_bf_kernel(vendor: str, strength: float = 0.4,
+                     radius: int = 4) -> np.ndarray:
+    """Measured per-vendor BF kernel (copy of the JAX package's): the
+    shape, with the channel stops' x/y anisotropy, from the committed
+    9 x 9 kernels `data/bf_kernel_{itl,e2v}.npy` (copies of the JAX
+    package's files); the amplitude rescaled so the central-pixel area
+    response (the discrete laplacian at the core) matches the isotropic
+    default at the same `strength`.  Unknown vendors get the isotropic
+    kernel.  Cached as numpy."""
+    path = os.path.join(_DATA, f"bf_kernel_{str(vendor).lower()}.npy")
+    iso = default_bf_kernel(radius=radius, strength=strength)
+    if not os.path.isfile(path):
+        return iso
+    K = np.load(path).astype(np.float32)
+    if K.shape != iso.shape:
+        return iso
+    c = radius
+
+    def lap(M):
+        return float(M[c, c + 1] + M[c, c - 1] + M[c + 1, c]
+                     + M[c - 1, c] - 4.0 * M[c, c])
+
+    return (K * (lap(iso) / lap(K))).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,9 @@
 module must import, and a tiny render from the committed state must run,
 with `jax` and the JAX package `imsim_tpu` blocked by a meta-path hook;
 no source of the port imports `imsim_tpu`.  chip_smoke.py's CPU
-rehearsal runs there too, and the script itself refuses to run without
-CUDA or outside the checkout."""
+rehearsal runs there too (every phase at small size, the state built
+from the pointing included), and the script itself refuses to run
+without CUDA or outside the checkout."""
 import ast
 import glob
 import json
@@ -98,6 +99,16 @@ def test_port_imports_and_renders_without_jax():
                  "[analytic] (h)", "[flats] (j)", "[flats] (k)",
                  "[modes] (l)", "[modes] (m)"):
         assert line in res.stdout, line
+    # phase 9: the bench state rebuilt from the pointing equals the
+    # exported one, and the ITL CCD built from its pointing renders with
+    # its gates
+    assert "[pointing] (n): 0 leaves differ" in res.stdout
+    assert "[pointing] R10_S11 (ITL, 4072 x 4000)" in res.stdout
+    assert "[pointing K3] 512x512" in res.stdout
+    for gate in "abcdef":
+        assert f"[itl] {'' if gate in 'bc' else 'cold '}({gate})" \
+            in res.stdout, gate
+    assert "ITL raw amps (16, 2048, 576)" in res.stdout
     assert all("launches_by_path" in row for row in report["kernels"])
 
 
