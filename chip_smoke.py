@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port's CCD render on one NVIDIA GPU, end to
 end, and check it: the bench CCD through the optics chain and through
-the analytic PSF, the flats, and the silicon modes and object families.
+the analytic PSF, the flats, the silicon modes and object families, a
+CCD built from its pointing, and a CCD rendered from an instance
+catalog through the runner's per-CCD path.
 
     python3 chip_smoke.py
 
@@ -58,7 +60,23 @@ ok line is never printed):
      through the optics path cold and warm (FFT stars with spikes at
      ITL's 97,000 e- full well, sky, readout to ITL raw amps), gates
      (a)-(f), launches under `launches_by_path["itl_ccd"]`;
- 10. the kernel report (JSON, all eleven kernels, with bound_ms,
+ 10. the instance-catalog CCD through the runner's per-CCD path
+     (imsim_tpu_torch.config.runner): the generated workload
+     (benchmarks/instcat_workload.py: 120,000 object lines over R22_S11
+     and 300 SEDs, written under chiprun_out/ and removed after), the
+     visit context from the catalog's header and prepare_ccd (cull, SEDs
+     and scene, field angles, silicon, sky level, spikes) with each host
+     step's seconds, gate (o): the prep against the JAX package's digest
+     (data/instcat_r22_s11_digest.npz); K1, K2 and K3 held to their
+     plain twins at this path's shapes (batch 0 of the catalog's pooled
+     plan, the CCD's optics over the band, the runner's silicon, the
+     frame); render_one_ccd cold and warm
+     (K1, K2, K3 and the FFT pass, sky with gradient and vignetting,
+     cosmic rays, readout) with gates (a)-(f) tagged [instcat], launches
+     under `launches_by_path["instcat_ccd"]`, and (p) the sky-only frame;
+     then the y-band copy, its kernels checked the same way, rendered
+     once with its fringe map, gate (q);
+ 11. the kernel report (JSON, all eleven kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last,
      the ok line.
 
@@ -135,19 +153,36 @@ def phase_kernels(device, state, host, cfg, ctx):
     """Each kernel against its plain twin on the same inputs, at the
     main path's shapes.  Returns the report rows (launches filled in
     later)."""
-    import numpy as np
     import torch
 
-    from imsim_tpu_torch.benchmarks._util import PX_RAD, Timer, bound
-    from imsim_tpu_torch.image import photon_pooling as PP
-    from imsim_tpu_torch.ops import raychain, scanrows
+    from imsim_tpu_torch.benchmarks._util import Timer
 
     timer = Timer(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
-    rows = []
+    k1, field, nb, N = _k1_row(timer, host, cfg, device)
+    rows = [k1, _k2_row(timer, gen, state.tel, ctx, state.silicon, field, N,
+                        device, (552.0, 691.0))]
+    del field
+    rows.append(_k3_row(timer, gen, state.silicon, cfg.ysize, cfg.xsize,
+                        device))
+    for row in rows:
+        log_kernel(row)
+    return rows, nb
 
-    # ---- K1 at batch 0's slot layout -----------------------------------
+
+def _k1_row(timer, host, cfg, device, tag="K1"):
+    """K1 against its plain twin at batch 0's slot layout of the scene's
+    pooled plan: the report row (bar sqrt(objects in the batch) float32
+    ulps of each column's scale), the scanned field angles (K2's input),
+    the batch count and the batch's photon slots."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import PX_RAD, bound
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.ops import scanrows
+
     modes = PP.classify_objects(host, cfg, PP.make_psf_mtf(cfg))
     cum, total, nb, N = PP.pooled_plan(host, modes, cfg)
     pair, share = cfg.pupil_pairing, cfg.screen_share
@@ -174,20 +209,20 @@ def phase_kernels(device, state, host, cfg, ctx):
     tol = np.sqrt(n_obj_b) * np.spacing(scale.astype(np.float32))
     vs_gather = (got.reshape(C, N)[:, alive] - gather[:, alive]).abs().amax(
         dim=1).cpu()
-    log(f"[K1] (C, pe, mp) = ({C}, {pe}, {mp}), {n_obj_b} objects in "
-        f"batch 0")
-    log("[K1] kernel-vs-plain gap per column: "
+    log(f"[{tag}] (C, pe, mp) = ({C}, {pe}, {mp}), {n_obj_b} objects in "
+        f"batch 0 of {nb}")
+    log(f"[{tag}] kernel-vs-plain gap per column: "
         + " ".join(f"{g:.3g}" for g in gap.tolist()))
-    log(f"[K1] field-angle gap vs direct gather mat[obj_idx]: "
+    log(f"[{tag}] field-angle gap vs direct gather mat[obj_idx]: "
         f"x {float(vs_gather[0]) / PX_RAD:.4g} px, "
         f"y {float(vs_gather[1]) / PX_RAD:.4g} px (reference budget 0.05)")
     bad = np.nonzero(gap.numpy() > tol)[0]
     if len(bad):
-        raise AssertionError(f"K1 columns {bad.tolist()} exceed "
+        raise AssertionError(f"{tag}: columns {bad.tolist()} exceed "
                              f"sqrt(n) ulp: {gap.numpy()[bad]} > {tol[bad]}")
     # bound: one add per element, d read and the rows written once; no
     # single PyTorch call computes the slot-order scan
-    rows.append(dict(
+    row = dict(
         name="scan_slot_prefix", route="cuda",
         source="imsim_tpu_torch/csrc/scanrows.cu",
         replaces="imsim_tpu/ops/scanrows.py:183",
@@ -195,59 +230,64 @@ def phase_kernels(device, state, host, cfg, ctx):
         ms=timer.ms(lambda: scanrows.scan_slot_prefix(d, pair, share)),
         plain_ms=timer.ms(lambda: scanrows.scan_slot_prefix_plain(
             d, pair, share)),
-        library_ms=None, **bound(d.numel(), 8 * d.numel())))
+        library_ms=None, **bound(d.numel(), 8 * d.numel()))
     field = (got.reshape(C, N)[0].contiguous(),
              got.reshape(C, N)[1].contiguous())
-    del d, got, want, gather, obj_map
+    return row, field, nb, N
 
-    # ---- K2 on the batch's photons (fused and plain forms) -------------
+
+def _k2_row(timer, gen, tel, octx, silicon, field, N, device, wl,
+            tag="K2"):
+    """K2 against its plain twin, fused and plain forms, on N photons at
+    the given field angles (K1's output), with uniform pupil positions,
+    wavelengths over wl = (lo, hi) nm and times over 30 s: the report row
+    (bars: raychain.gaps_ok)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import bound
+    from imsim_tpu_torch.ops import raychain
+
     u = lambda lo=0.0, hi=1.0: torch.rand(  # noqa: E731
         N, generator=gen, device=device) * (hi - lo) + lo
     r = torch.sqrt(u(2.558**2, 4.18**2))
     a = u(0.0, 2 * np.pi)
     args = (field[0], field[1], r * torch.cos(a), r * torch.sin(a),
-            u(552.0, 691.0), u(0.0, 30.0), torch.ones(N, device=device),
+            u(*wl), u(0.0, 30.0), torch.ones(N, device=device),
             torch.randn(N, generator=gen, device=device))
     draws = (u(1e-7, 1.0), torch.randn(N, generator=gen, device=device),
              torch.randn(N, generator=gen, device=device))
 
     def k2(fn, fused):
-        kw = dict(silicon=state.silicon, si_draws=draws) if fused else {}
-        return fn(state.tel, ctx, *args, **kw)
+        kw = dict(silicon=silicon, si_draws=draws) if fused else {}
+        return fn(tel, octx, *args, **kw)
 
     k2_err = 0.0
     for fused in (False, True):
         ref = k2(raychain.field_to_sensor_plain, fused)
         out = k2(raychain.field_to_sensor, fused)
-        gaps = raychain.chain_gaps(ref, out, ctx, *args[2:6], args[7])
+        gaps = raychain.chain_gaps(ref, out, octx, *args[2:6], args[7])
         form = "fused" if fused else "plain"
-        log(f"[K2] {form} form: {json.dumps(gaps)}")
+        log(f"[{tag}] {form} form: {json.dumps(gaps)}")
         if not raychain.gaps_ok(gaps, fused):
-            raise AssertionError(f"K2 {form} form disagrees with its plain "
-                                 f"twin")
+            raise AssertionError(f"{tag}: {form} form disagrees with its "
+                                 f"plain twin")
         k2_err = max(k2_err, gaps["dxy"])
+        del ref, out
     # bound: chain_flops per photon (counted from csrc/raychain.cu) and
     # 11 float32 inputs read, 3 written per photon (the fused form
     # timed); no single PyTorch call computes the chain
     flops = raychain.chain_flops(raychain.chain_params(
-        state.tel, ctx, True, True, True, state.silicon))
-    log(f"[K2] {flops} operations per photon (ops/raychain.chain_flops)")
-    rows.append(dict(
+        tel, octx, True, True, True, silicon))
+    log(f"[{tag}] {flops} operations per photon (ops/raychain.chain_flops)")
+    return dict(
         name="field_to_sensor", route="cuda",
         source="imsim_tpu_torch/csrc/raychain.cu",
         replaces="imsim_tpu/ops/raychain.py:158", max_abs_err=k2_err,
         ms=timer.ms(lambda: k2(raychain.field_to_sensor, True)),
         plain_ms=timer.ms(lambda: k2(raychain.field_to_sensor_plain, True),
                           reps=1),
-        library_ms=None, **bound(flops * N, 4 * 14 * N)))
-    del args, draws, field, ref, out
-
-    # ---- K3 on a full frame ---------------------------------------------
-    rows.append(_k3_row(timer, gen, state.silicon, cfg.ysize, cfg.xsize,
-                        device))
-    for row in rows:
-        log_kernel(row)
-    return rows, nb
+        library_ms=None, **bound(flops * N, 4 * 14 * N))
 
 
 def _k3_row(timer, gen, silicon, H, W, device, tag="K3"):
@@ -344,22 +384,15 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
     and (`buckets`) the galaxy-bucket FFT path.  Log lines carry
     `[tag]`.  Returns the render's launch counts of the cold run and the
     stages' seconds."""
-    import numpy as np
-    import torch
-
     from imsim_tpu_torch.benchmarks._util import Timer
-    from imsim_tpu_torch.electronics.camera import VENDOR_SPECS
     from imsim_tpu_torch.image import photon_pooling as PP
-    from imsim_tpu_torch.image.ccd_render import (add_sky_and_noise,
-                                                  sky_expectation)
+    from imsim_tpu_torch.image.ccd_render import add_sky_and_noise
     from imsim_tpu_torch.ops import _build
     from imsim_tpu_torch.psf.atmosphere import make_screens
     from imsim_tpu_torch.utils.rng import ATM_SEED_OFFSET, stream
 
     timer = Timer(device)
     ro = state.readout
-    spec = VENDOR_SPECS[ro.vendor]
-    H, W = cfg.ysize, cfg.xsize
     screens = make_screens(state.screen_spec, device,
                            gen=stream(42 + ATM_SEED_OFFSET, "screens",
                                       device=device))
@@ -369,6 +402,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
                   stencil_pair=nb * cfg.nsub)
     grad = (0.0, 0.0, 1.0)
     result = {}
+    gates_fft = None
     for label in labels:
         tally = {}
         (image, modes, realized), t_r, m_r, l_r = _stage(
@@ -392,71 +426,101 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
         _check((n_fft > 0) if small
                else n_fft == int((state.modes == PP.FFT).sum()),
                f"{n_fft} FFT-mode objects")
-
-        # (a) the pooled charge: the image less the FFT pass's charge
-        # is the pooled flux binned in frame
-        fft_sum = float(tally["fft"])
-        pooled_img = float(image.sum(dtype=torch.float64)) - fft_sum
-        in_frame = float(tally["in_frame"])
-        pooled = float(tally["pooled"])
-        rel = abs(pooled_img - in_frame) / max(in_frame, 1.0)
-        landed = in_frame / pooled
-        log(f"[{tag}] {label} (a): {n_fft} FFT objects; pooled photons "
-            f"{pooled:.0f}, in-frame flux {in_frame:.1f}, image sum less "
-            f"the FFT charge {pooled_img:.1f} (rel gap {rel:.3g} <= 1e-4), "
-            f"landed fraction {landed:.6f} (> 0.8)")
-        _check(rel <= 1e-4 and landed > 0.8,
-               "charge accounting or landed fraction out of bounds")
         if label == "cold":
-            gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac,
-                                   tag)
             result = dict(launches=l_r, wall_cold=t_r + t_s + t_o)
         else:
             result.update(wall_warm=t_r + t_s + t_o, render=t_r, sky=t_s,
                           readout=t_o)
-        # (d) the FFT noise: the added charge about the spiked field
-        vis_sum = gates_fft["spiked_sum"]
-        log(f"[{tag}] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
-            f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
-            f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
-        _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
-               "FFT noise out of bounds")
-
-        # (e) the sky: the mean added charge and the residual's variance
-        sky = sky_expectation((H, W), state.sky_level, grad,
-                              state.vig_coarse, cfg.pixel_scale,
-                              state.vig_step, device=device)
-        res = (eimage - image - sky).double()
-        n_pix = H * W
-        sky_mean = float(sky.mean(dtype=torch.float64))
-        res_mean = float(res.mean())
-        res_var = float(res.var())
-        want_var = sky_mean + 1.0 / 12
-        log(f"[{tag}] {label} (e): sky map mean {sky_mean:.3f} e-/px; added "
-            f"minus map {res_mean:.4f} (<= 5 sigma = "
-            f"{5 * np.sqrt(want_var / n_pix):.4f}); residual variance "
-            f"{res_var:.3f} vs map mean + 1/12 = {want_var:.3f} "
-            f"(rel {res_var / want_var - 1:.4f}, bar 0.02)")
-        _check(abs(res_mean) <= 5 * np.sqrt(want_var / n_pix)
-               and abs(res_var / want_var - 1) <= 0.02,
-               "sky noise out of bounds")
-        del res, sky
-
-        # (f) the readout: finite raw amps; prescan medians at the bias
-        pre = raw[:, :spec["amp_ny"], :spec["prescan"]].reshape(
-            raw.shape[0], -1)
-        med = pre.median(dim=1).values.cpu().numpy()
-        gap = np.abs(med - ro.bias_levels.cpu().numpy())
-        log(f"[{tag}] {label} (f): {ro.vendor} raw amps {tuple(raw.shape)}, "
-            f"prescan median - bias: max {gap.max():.3f} ADU (<= 0.5)")
-        _check(tuple(raw.shape) == (16, 2048, 576)
-               and bool(torch.isfinite(raw).all()) and gap.max() <= 0.5,
-               "raw amps not finite, of the wrong shape or off their bias")
+        gates_fft = _ccd_gates(
+            device, tag, label, host, cfg, spikes, frac, image, eimage, raw,
+            modes, tally, (state.sky_level, grad, state.vig_coarse,
+                           state.vig_step, None), ro, gates_fft)
         del image, eimage, raw
 
     if buckets:
         _galaxy_buckets(device, host, cfg, spikes, 2 if small else 8)
     return result
+
+
+def _ccd_gates(device, tag, label, host, cfg, spikes, frac, image, eimage,
+               raw, modes, tally, sky, ro, gates_fft=None, masked=None,
+               landed_min: float = 0.8):
+    """Gates (a)-(f) on one rendered CCD: (a) the pooled charge, (b)-(c)
+    the FFT field and its spikes (computed once, when gates_fft is None),
+    (d) the FFT noise, (e) the sky's mean and variance over the frame
+    (less the `masked` flat pixel indices: the cosmic rays' hits), (f)
+    the raw amps' prescan at the bias.  sky: (level, gradient, coarse
+    vignetting, its step, fringe or None); landed_min: (a)'s floor on
+    the landed fraction.  Returns gates_fft."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.electronics.camera import VENDOR_SPECS
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.ccd_render import sky_expectation
+
+    H, W = cfg.ysize, cfg.xsize
+    spec = VENDOR_SPECS[ro.vendor]
+    n_fft = int((modes == PP.FFT).sum())
+    # (a) the pooled charge: the image less the FFT pass's charge is the
+    # pooled flux binned in frame
+    fft_sum = float(tally["fft"])
+    pooled_img = float(image.sum(dtype=torch.float64)) - fft_sum
+    in_frame = float(tally["in_frame"])
+    pooled = float(tally["pooled"])
+    rel = abs(pooled_img - in_frame) / max(in_frame, 1.0)
+    landed = in_frame / pooled
+    log(f"[{tag}] {label} (a): {n_fft} FFT objects; pooled photons "
+        f"{pooled:.0f}, in-frame flux {in_frame:.1f}, image sum less "
+        f"the FFT charge {pooled_img:.1f} (rel gap {rel:.3g} <= 1e-4), "
+        f"landed fraction {landed:.6f} (> {landed_min:.3g})")
+    _check(rel <= 1e-4 and landed > landed_min,
+           "charge accounting or landed fraction out of bounds")
+    if gates_fft is None:
+        gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac, tag)
+    # (d) the FFT noise: the added charge about the spiked field
+    vis_sum = gates_fft["spiked_sum"]
+    log(f"[{tag}] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
+        f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
+        f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
+    _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
+           "FFT noise out of bounds")
+
+    # (e) the sky: the mean added charge and the residual's variance
+    level, grad, vig, vig_step, fringe = sky
+    sky_map = sky_expectation((H, W), level, grad, vig, cfg.pixel_scale,
+                              vig_step, fringe, device=device)
+    res = (eimage - image - sky_map).double().reshape(-1)
+    if masked is not None and len(masked):
+        keep = torch.ones(res.numel(), dtype=torch.bool, device=device)
+        keep[torch.as_tensor(masked, device=device)] = False
+        res = res[keep]
+    n_pix = res.numel()
+    sky_mean = float(sky_map.mean(dtype=torch.float64))
+    res_mean = float(res.mean())
+    res_var = float(res.var())
+    want_var = sky_mean + 1.0 / 12
+    log(f"[{tag}] {label} (e): sky map mean {sky_mean:.3f} e-/px; added "
+        f"minus map {res_mean:.4f} (<= 5 sigma = "
+        f"{5 * np.sqrt(want_var / n_pix):.4f}); residual variance "
+        f"{res_var:.3f} vs map mean + 1/12 = {want_var:.3f} "
+        f"(rel {res_var / want_var - 1:.4f}, bar 0.02)")
+    _check(abs(res_mean) <= 5 * np.sqrt(want_var / n_pix)
+           and abs(res_var / want_var - 1) <= 0.02,
+           "sky noise out of bounds")
+    del res, sky_map
+
+    # (f) the readout: finite raw amps; prescan medians at the bias
+    pre = raw[:, :spec["amp_ny"], :spec["prescan"]].reshape(
+        raw.shape[0], -1).float()
+    med = pre.median(dim=1).values.cpu().numpy()
+    gap = np.abs(med - ro.bias_levels.cpu().numpy())
+    log(f"[{tag}] {label} (f): {ro.vendor} raw amps {tuple(raw.shape)}, "
+        f"prescan median - bias: max {gap.max():.3f} ADU (<= 0.5)")
+    _check(tuple(raw.shape) == (16, 2048, 576)
+           and bool(torch.isfinite(raw.float()).all()) and gap.max() <= 0.5,
+           "raw amps not finite, of the wrong shape or off their bias")
+    return gates_fft
 
 
 def _spikes(device, ro):
@@ -1085,11 +1149,248 @@ def phase_pointing(device, small: bool):
     return dict(res, build_s=t_b, build_itl_s=t_i, k3=k3)
 
 
+# ---- phase 10: the instance-catalog CCD -----------------------------------
+
+INSTCAT_DET = "R22_S11"
+# the rehearsal's workload: 2,000 objects over R22_S11's central 512 x 512
+# window (+10 px), two bright stars; rendered in 2 batches with 102.4 m
+# screens
+INSTCAT_SMALL = dict(n_lines=2000, window=(512, 512), margin=10.0,
+                     n_bright=2, total_photons=3e5)
+INSTCAT_SMALL_CFG = {"image.nbatch": 2, "input.atm_psf.screen_size": 102.4}
+
+
+def _sky_only(device, cfg, pieces, seed):
+    """(p)/(q): the sky stage alone on an empty frame, its mean against
+    level x gradient x vignetting (x fringe) evaluated on the host in
+    float64 (the plane analytically, the coarse vignetting upsampled by
+    separable linear interpolation), within 5 sigma of the frame mean."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.image.ccd_render import add_sky_and_noise
+    from imsim_tpu_torch.utils.rng import stream
+
+    level, grad, vig, step, fringe = pieces
+    H, W = cfg.ysize, cfg.xsize
+    sky = add_sky_and_noise(stream(seed, "sky only", device=device),
+                            torch.zeros((H, W), device=device),
+                            float(np.float32(level)), grad, vig,
+                            cfg.pixel_scale, vig_step=step, fringe=fringe)
+    got = float(sky.mean(dtype=torch.float64))
+    del sky
+    ys, xs = np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64)
+    v = np.asarray(vig, np.float64)
+    gy, gx = np.arange(v.shape[0]) * step, np.arange(v.shape[1]) * step
+    cols = np.stack([np.interp(xs, gx, row) for row in v])
+    vmap = np.stack([np.interp(ys, gy, cols[:, j]) for j in range(W)], 1)
+    plane = grad[0] * xs[None, :] + grad[1] * ys[:, None] + grad[2]
+    fac = plane * vmap
+    if fringe is not None:
+        f = fringe.cpu().numpy() if hasattr(fringe, "cpu") else fringe
+        fac = fac * np.asarray(f, np.float64)
+    want = float(np.float32(level)) * cfg.pixel_scale ** 2 * fac.mean()
+    sigma = np.sqrt(want / (H * W))
+    return got, want, sigma
+
+
+def phase_instcat(device, small: bool):
+    """The instance-catalog CCD through the runner's per-CCD path: the
+    generated workload (120,000 lines and its SED library, or the
+    rehearsal's 2,000 over a 512 x 512 window), the visit context and
+    prepare_ccd for R22_S11 with each host step's seconds, gate (o)
+    against the JAX package's digest (full size), render_one_ccd cold
+    and warm with gates (a)-(f) tagged [instcat] and (p) the sky-only
+    frame; then the y-band copy, rendered once with its fringe map, gate
+    (q).  Returns the r render's launches (cold)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from imsim_tpu_torch.benchmarks import instcat_workload as WL
+
+    t0 = time.perf_counter()
+    if small:
+        out_dir = tempfile.mkdtemp(prefix="instcat_")
+        kw, window = INSTCAT_SMALL, INSTCAT_SMALL["window"]
+    else:
+        out_dir = os.path.join(HERE, "chiprun_out", "instcat_workload")
+        kw, window = {}, None
+    try:
+        wl = WL.write_workload(out_dir, **kw)
+        log(f"[instcat] workload written in {time.perf_counter() - t0:.1f} s:"
+            f" {kw.get('n_lines', 120_000)} object lines, sha256 r "
+            f"{wl['sha256']['r'][:16]}..., y {wl['sha256']['y'][:16]}...")
+        want = None
+        if not small:
+            with np.load(WL.DIGEST) as z:
+                want = {k: z[k] for k in z.files}
+        launches = _instcat_band(device, small, wl, "r", window, want)
+        _instcat_band(device, small, wl, "y", window, want)
+        log(f"[instcat] phase 10 took {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _instcat_band(device, small, wl, band, window, want):
+    """One band of phase 10: the prep with its host seconds, gate (o),
+    K1-K3 held to their twins at this path's shapes, the renders (r cold and warm, y once; the rehearsal renders each
+    once) and their gates, and (p) or (q).  Returns the first render's
+    launches."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.benchmarks import instcat_workload as WL
+    from imsim_tpu_torch.benchmarks._util import Timer
+    from imsim_tpu_torch.config import runner as TR
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.cosmic_rays import cosmic_ray_hits
+    from imsim_tpu_torch.ops import _build
+
+    timer = Timer(device)
+    tag = "instcat" if band == "r" else "instcat y"
+    ctx = TR.build_visit_context(wl["catalog"][band], sed_dirs=wl["sed_dir"],
+                                 overrides=INSTCAT_SMALL_CFG if small else None)
+    prep = TR.prepare_ccd(ctx, INSTCAT_DET, window=window, device=device)
+    t = time.perf_counter()
+    pieces = TR.sky_noise_pieces(ctx, prep, device=device)
+    timer.sync()
+    steps = dict(ctx.seconds, **prep.seconds,
+                 **{"sky pieces": time.perf_counter() - t})
+    host, cfg = prep.host, prep.pcfg
+    modes = PP.classify_objects(host, cfg, PP.make_psf_mtf(cfg))
+    _, total, nb, _ = PP.pooled_plan(host, modes, cfg)
+    counts = np.bincount(modes, minlength=3)
+    log(f"[{tag}] {INSTCAT_DET} {cfg.ysize} x {cfg.xsize}: host seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+        + f" (sum {sum(steps.values()):.3f}); {host.n_objects} objects kept,"
+        f" modes FFT/PHOT/FAINT {counts.tolist()}, {total} pooled photons in "
+        f"{nb} batches; sky {prep.sky_level:.1f} photons/arcsec^2, FWHMeff "
+        f"{cfg.fwhm:.4f}, wl_ref {cfg.wl_ref:.3f} nm")
+    if want is not None:
+        got = WL.prep_digest(ctx, prep, pieces, modes, band)
+        bad, gaps = WL.digest_mismatches(got, want, band)
+        sha_ok = wl["sha256"][band] == str(want[f"{band}.catalog_sha256"])
+        log(f"[{tag}] (o): prep against the JAX package's digest: catalog "
+            f"sha256 {'equal' if sha_ok else 'DIFFERS'}; {len(bad)} leaves "
+            f"past their bars (kept, ids, realized sum, modes exact; "
+            f"sampled nominal flux and wavelength rows bit-equal; field "
+            f"angles <= 1 float32 ulp; sky level and gradient <= 1e-12 "
+            f"relative; fringe mean and std <= 1e-6 relative); gaps "
+            + json.dumps({k: float(v) for k, v in gaps.items()})
+            + "".join(f"\n[{tag}]   {k}: {v}" for k, v in bad.items()))
+        _check(sha_ok and not bad, f"{band}-band prep differs from the "
+                                   f"JAX package's digest")
+    else:
+        log(f"[{tag}] (o): the rehearsal's catalog has no JAX digest; the "
+            f"full-size run holds the prep to it")
+
+    # this path's kernels against their plain twins at its own shapes: K1
+    # on batch 0 of the catalog's pooled plan, K2 on that batch's field
+    # angles with the CCD's telescope, optics context and the runner's
+    # silicon over the band's wavelengths, K3 with that silicon's taps on
+    # the frame
+    _check(prep.use_optics, "the catalog CCD is not on the optics path")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261018)
+    bp = prep.bandpass
+    band_wl = tuple(float(v) for v in bp.wave[bp.throughput > 0][[0, -1]])
+    k1, field, _, n_slots = _k1_row(timer, host, cfg, device, f"{tag} K1")
+    krows = [k1, _k2_row(timer, gen, prep.tel32, prep.octx, prep.silicon,
+                         field, n_slots, device, band_wl, f"{tag} K2")]
+    del field
+    krows.append(_k3_row(timer, gen, prep.silicon, cfg.ysize, cfg.xsize,
+                         device, tag=f"{tag} K3"))
+    for row in krows:
+        log_kernel(row, f" ({tag}: the catalog's batch, {band_wl[0]:.1f}-"
+                        f"{band_wl[1]:.1f} nm, the runner's silicon)")
+
+    none = {k: 0 for k in _build.LAUNCHES}
+    expect = dict(none, scan_slot_prefix=nb, field_to_sensor=nb,
+                  stencil_pair=nb * cfg.nsub)
+    if not timer.cuda:
+        expect = none
+    spikes = prep.spikes
+    kern = spikes["kernel"]
+    frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
+    rate = float(ctx.cfg["output.cosmic_ray_rate"])
+    hits, _ = cosmic_ray_hits((cfg.ysize, cfg.xsize), prep.exptime,
+                              ctx.seed * 189 + prep.det_num, ccd_rate=rate)
+    # (a)'s floor: 0.8 of the pooled photons' mean chance to convert in
+    # the silicon (in y a third of them pass through it)
+    n = host.n_objects
+    labs = host.scene.labs_icdf[:n].double().cpu().numpy()
+    conv = (1.0 - np.exp(-prep.silicon.thickness_um / labs)).mean(axis=1)
+    w = np.where(modes != PP.FFT, host.flux[:n], 0.0)
+    landed_min = 0.8 * float((conv * w).sum() / w.sum())
+    first = gates_fft = None
+    labels = ("once",) if band == "y" else ("cold",) if small \
+        else ("cold", "warm")
+    for label in labels:
+        tally = {}
+        if timer.cuda:
+            torch.cuda.reset_peak_memory_stats()
+        timer.sync()
+        _build.reset_launches()
+        t = time.perf_counter()
+        res = TR.render_one_ccd(ctx, INSTCAT_DET, device, prep=prep,
+                                tally=tally)
+        timer.sync()
+        wall = time.perf_counter() - t
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if timer.cuda \
+            else float("nan")
+        log(f"[{tag}] {label}: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in res["seconds"].items())
+            + f"; whole CCD {wall:.3f} s ({peak:.2f} GiB peak, launches "
+            f"{launches})")
+        _check(launches == expect, f"{tag} launch counts {launches} != "
+                                   f"{expect}")
+        _check(int((res["modes"] == PP.FFT).sum()) == int(counts[PP.FFT]),
+               "FFT-mode objects differ from the classifier's")
+        gates_fft = _ccd_gates(
+            device, tag, label, host, cfg, spikes, frac, res["image"],
+            res["eimage"], res["amps"], res["modes"], tally, res["pieces"],
+            prep.readout, gates_fft, masked=hits, landed_min=landed_min)
+        first = first or launches
+        del res
+
+    # (p) / (q): the sky stage alone against level x gradient x vignetting
+    # (x the fringe map in y)
+    got, want_mean, sigma = _sky_only(device, cfg, pieces, 10)
+    gate = "(p)" if band == "r" else "(q)"
+    msg = (f"[{tag}] {gate}: sky-only frame mean {got:.4f} e-/px against "
+           f"level x gradient x vignetting{' x fringe' if band == 'y' else ''}"
+           f" {want_mean:.4f} (gap {(got - want_mean) / sigma:+.2f} sigma, "
+           f"bar 5)")
+    ok = abs(got - want_mean) <= 5 * sigma
+    if band == "y":
+        fringe = pieces[4]
+        _check(fringe is not None, "no fringe map in y on E2V")
+        f = fringe.double()
+        fm, fs = float(f.mean()), float(f.std(correction=0))
+        msg += f"; fringe map mean {fm:.7f}, std {fs:.3e}"
+        if want is not None:
+            wm, ws = (float(v) for v in want["y.fringe"])
+            rel = max(abs(fm / wm - 1), abs(fs / ws - 1))
+            msg += (f" against the JAX package's {wm:.7f}, {ws:.3e} (rel "
+                    f"gap {rel:.3g}, bar 1e-6)")
+            ok = ok and rel <= 1e-6
+        else:
+            ok = ok and 0 < fs < 0.01 and abs(fm - 1) < 1e-3
+    log(msg)
+    _check(ok, f"{gate} sky-only frame out of bounds")
+    return first
+
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-9 on `device`; returns the kernel report.  Each row's
+    """Phases 2-10 on `device`; returns the kernel report.  Each row's
     `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
     and `launches_by_path` the count on every path that drives it
-    (`itl_ccd`: phase 9's CCD built from the pointing)."""
+    (`itl_ccd`: phase 9's CCD built from the pointing; `instcat_ccd`:
+    phase 10's CCD from the instance catalog, its cold r render)."""
     import torch
 
     _import_port()
@@ -1115,6 +1416,7 @@ def run(device, small: bool = False) -> dict:
                                                        modes["image"])
     del state
     paths["itl_ccd"] = phase_pointing(device, small)["launches"]
+    paths["instcat_ccd"] = phase_instcat(device, small)
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if c[row["name"]]}

@@ -20,10 +20,12 @@ runner's silicon; the bench catalog's draws over that CCD's frame; the
 host seconds of the build reported), as chip_smoke's phase 9 does for
 R10_S11; --flats times and profiles the flats of chip_smoke's phase 7
 (`build_flat` at the runner's defaults, `build_flat_photons` at the cut)
-instead of a CCD.
+instead of a CCD; --instcat renders chip_smoke phase 10's instance-catalog
+CCD through the runner's per-CCD path (config/runner.render_one_ccd), with
+the host seconds of its preparation.
 
 On the card, from the root of a checkout:
-    python3 -m imsim_tpu_torch.benchmarks.profile_render [--analytic | --det R10_S11 | --flats]
+    python3 -m imsim_tpu_torch.benchmarks.profile_render [--analytic | --det R10_S11 | --flats | --instcat]
 Prints one JSON line.
 """
 from __future__ import annotations
@@ -179,6 +181,53 @@ def main_flats(warm: int = 3) -> dict:
     return out
 
 
+def main_instcat(warm: int = 3, band: str = "r") -> dict:
+    """The instance-catalog CCD of chip_smoke's phase 10: the generated
+    workload (benchmarks/instcat_workload.py, full size, in a temporary
+    directory), the visit context and prepare_ccd of R22_S11 with each
+    host step's seconds, then render_one_ccd (the runner's per-CCD path:
+    render, sky, cosmic rays, readout) cold, `warm` times warm with its
+    per-stage seconds, and one profiled warm run."""
+    import tempfile
+
+    from ..config import runner as TR
+    from ..image import photon_pooling as PP
+    from .instcat_workload import write_workload
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: needs a CUDA device")
+    device = torch.device("cuda")
+    smi = _smi()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        wl = write_workload(d)
+        write_s = time.perf_counter() - t0
+        ctx = TR.build_visit_context(wl["catalog"][band],
+                                     sed_dirs=wl["sed_dir"])
+        prep = TR.prepare_ccd(ctx, "R22_S11", device=device)
+        host_s = dict(ctx.seconds, **prep.seconds)
+
+        def ccd():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = TR.render_one_ccd(ctx, "R22_S11", device, prep=prep)
+            torch.cuda.synchronize()
+            return dict(res["seconds"], ccd=time.perf_counter() - t)
+
+        cold = ccd()
+        walls = [ccd() for _ in range(warm)]
+        prof = _profiled(lambda: ccd()["ccd"])
+    cfg = prep.pcfg
+    modes = PP.classify_objects(prep.host, cfg, PP.make_psf_mtf(cfg))
+    _, total, nb, _ = PP.pooled_plan(prep.host, modes, cfg)
+    return dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                path="instcat", band=band, det="R22_S11",
+                frame=(cfg.ysize, cfg.xsize), write_s=write_s, host_s=host_s,
+                n_objects=prep.host.n_objects, pooled=total, nbatch=nb,
+                n_fft=int((modes == PP.FFT).sum()), cold=cold, warm=walls,
+                profiled_ccd=prof)
+
+
 def _cli():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm", type=int, default=3)
@@ -189,9 +238,16 @@ def _cli():
                       "state built from the bench pointing")
     kind.add_argument("--flats", action="store_true",
                       help="the flats of chip_smoke's phase 7")
+    kind.add_argument("--instcat", action="store_true",
+                      help="the instance-catalog CCD of chip_smoke's phase 10")
     a = ap.parse_args()
-    print(json.dumps(main_flats(a.warm) if a.flats
-                     else main(a.warm, a.analytic, a.det)))
+    if a.flats:
+        out = main_flats(a.warm)
+    elif a.instcat:
+        out = main_instcat(a.warm)
+    else:
+        out = main(a.warm, a.analytic, a.det)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

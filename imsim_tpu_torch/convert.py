@@ -18,8 +18,11 @@ from an exported file.
   * `synthetic_scene` reproduces bench.build_synthetic_host's numpy
     draws with the field angles from the state.
 
-The full-resolution fringe map stays out: it is host code's output at
-full size (the catalog half, ROADMAP A5b).
+The visit and per-CCD steps (`visit_factory`, `ccd_optics`,
+`runner_silicon`, `second_kick`, `profile_tables`) are shared with the
+instance-catalog path (config/runner.py), which adds the catalog half:
+the scene from the catalog and its SEDs, the sky model's level and
+gradient, and the fringe map in y.
 """
 from __future__ import annotations
 
@@ -347,6 +350,46 @@ SK_WAVELENGTH_NM = 622.0
 FFT_SB_THRESH = 2e5
 
 
+def visit_factory(ra: float, dec: float, mjd: float, band: str = "r",
+                  rotTelPos: float = 0.0, perturbations=(), **weather):
+    """The visit's telescope (with its perturbations, at rotTelPos [rad])
+    and its WCS factory at the boresight (ra, dec) [rad] and mjd (TAI);
+    `weather`: make_wcs_factory's keywords (temperature_k, ...)."""
+    return make_wcs_factory(ra, dec, mjd, band=band, telescope=load_telescope(
+        band=band, perturbations=perturbations, rotTelPos=rotTelPos),
+        **weather)
+
+
+def ccd_optics(fac, ccd):
+    """(TAN-SIP WCS, telescope surface matrix, optics context) of one
+    CCD; the telescope carries the CCD's focal-height offset, so the
+    photons and the fitted WCS share its surface."""
+    wcs = fac.get_wcs(ccd)
+    design = fac.telescope.for_detector(
+        ccd.det_name, z_offset=getattr(ccd, "height_mm", 0.0) * 1e-3)
+    return wcs, design.matrix(), make_optics_context(fac, ccd)
+
+
+def runner_silicon(ccd, tree_rings: TreeRings,
+                   strength: float = 1.0) -> SiliconParams:
+    """config/runner.prepare_ccd's silicon: the CCD's tree rings and the
+    vendor's measured BF kernel at 0.4 x the sensor strength."""
+    sil = SiliconParams.make(treering_model=tree_rings.get(ccd.det_name),
+                             bf_strength=0.4 * strength)
+    return dataclasses.replace(sil, bf_kernel=vendor_bf_kernel(
+        ccd.vendor, strength=0.4 * strength))
+
+
+def second_kick(atm: AtmConfig, wavelength_nm: float) -> PolyCDF:
+    """The second kick's gather-free Chebyshev sampler at a wavelength."""
+    return PolyCDF.fit(second_kick_table(atm, wavelength_nm))[0]
+
+
+def profile_tables() -> ProfileTables:
+    """The intrinsic-profile samplers (Sersic and exponential disk)."""
+    return ProfileTables(sersic=sersic_poly2d(), exp_disk=exp_disk_poly())
+
+
 def build_ccd_state(det_name: str, ra: float, dec: float, mjd: float,
                     band: str = "r", rotTelPos: float = 0.0,
                     perturbations=(), camera: str = "LsstCamSim",
@@ -384,12 +427,8 @@ def build_ccd_state(det_name: str, ra: float, dec: float, mjd: float,
 
     ccd = get_camera(camera)[det_name]
     nx, ny = ccd.bounds.width, ccd.bounds.height
-    fac = make_wcs_factory(ra, dec, mjd, band=band, telescope=load_telescope(
-        band=band, perturbations=perturbations, rotTelPos=rotTelPos))
-    wcs = fac.get_wcs(ccd)
-    design = fac.telescope.for_detector(
-        det_name, z_offset=getattr(ccd, "height_mm", 0.0) * 1e-3)
-    ctx = make_optics_context(fac, ccd)
+    fac = visit_factory(ra, dec, mjd, band, rotTelPos, perturbations)
+    wcs, tel, ctx = ccd_optics(fac, ccd)
     lap("wcs")
 
     def field_angles(x, y):
@@ -405,17 +444,17 @@ def build_ccd_state(det_name: str, ra: float, dec: float, mjd: float,
                              make_psf_mtf(pcfg))
     lap("scene")
 
-    sil = SiliconParams.make(treering_model=TreeRings().get(det_name))
     if silicon == "runner":
-        sil = dataclasses.replace(sil, bf_kernel=vendor_bf_kernel(ccd.vendor))
+        sil = runner_silicon(ccd, TreeRings())
+    else:
+        sil = SiliconParams.make(treering_model=TreeRings().get(det_name))
     atm = AtmConfig(fwhm=fwhm)
-    sk, _ = PolyCDF.fit(second_kick_table(atm, SK_WAVELENGTH_NM))
-    profiles = ProfileTables(sersic=sersic_poly2d(), exp_disk=exp_disk_poly())
+    sk = second_kick(atm, SK_WAVELENGTH_NM)
     lap("tables")
     state = CcdState(
-        det_name=det_name, nx=nx, ny=ny, tel=design.matrix(), ctx=ctx,
+        det_name=det_name, nx=nx, ny=ny, tel=tel, ctx=ctx,
         silicon=sil, sk_table=sk, screen_spec=screen_spec(atm_seed, atm),
-        profiles=profiles, thx=np.asarray(cols["x"], np.float32),
+        profiles=profile_tables(), thx=np.asarray(cols["x"], np.float32),
         thy=np.asarray(cols["y"], np.float32),
         modes=np.asarray(modes, np.int8), seed=seed,
         total_photons=float(B["total_photons"]), n_bright=B["n_bright"],

@@ -3,8 +3,8 @@ module must import, and a tiny render from the committed state must run,
 with `jax` and the JAX package `imsim_tpu` blocked by a meta-path hook;
 no source of the port imports `imsim_tpu`.  chip_smoke.py's CPU
 rehearsal runs there too (every phase at small size, the state built
-from the pointing included), and the script itself refuses to run
-without CUDA or outside the checkout."""
+from the pointing and the instance-catalog CCD included), and the script
+itself refuses to run without CUDA or outside the checkout."""
 import ast
 import glob
 import json
@@ -109,6 +109,17 @@ def test_port_imports_and_renders_without_jax():
         assert f"[itl] {'' if gate in 'bc' else 'cold '}({gate})" \
             in res.stdout, gate
     assert "ITL raw amps (16, 2048, 576)" in res.stdout
+    # phase 10: the instance-catalog CCD through the runner's per-CCD
+    # path, r with gates (a)-(f) and (p), y with its fringe map and (q)
+    assert "[instcat] R22_S11 512 x 512: host seconds" in res.stdout
+    for band, label in (("instcat", "cold"), ("instcat y", "once")):
+        for gate in "adef":
+            assert f"[{band}] {label} ({gate})" in res.stdout, (band, gate)
+        assert f"[{band}] (b)" in res.stdout and f"[{band}] (c)" \
+            in res.stdout
+    assert "[instcat] (p): sky-only frame" in res.stdout
+    assert "[instcat y] (q): sky-only frame" in res.stdout
+    assert "fringe map mean" in res.stdout
     assert all("launches_by_path" in row for row in report["kernels"])
 
 
