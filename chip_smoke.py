@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's CCD render on one NVIDIA GPU, end to
 end, and check it: the bench CCD through the optics chain and through
 the analytic PSF, the flats, the silicon modes and object families, a
-CCD built from its pointing, and a CCD rendered from an instance
-catalog through the runner's per-CCD path.
+CCD built from its pointing, a CCD rendered from an instance catalog
+through the runner's per-CCD path, and a visit from a YAML config to
+files on disk through the CLI.
 
     python3 chip_smoke.py
 
@@ -76,7 +77,24 @@ ok line is never printed):
      under `launches_by_path["instcat_ccd"]`, and (p) the sky-only frame;
      then the y-band copy, its kernels checked the same way, rendered
      once with its fringe map, gate (q);
- 11. the kernel report (JSON, all eleven kernels, with bound_ms,
+ 11. a visit from YAML through the CLI, in process
+     (imsim_tpu_torch.__main__.main; files under chiprun_out/visit/,
+     removed after): the workload with 120,000 more lines over R10_S11
+     (ITL), a user config on the instance-catalog template rendering
+     R22_S11 and R10_S11 with the prefetch thread and one IO worker, OPD
+     and truth outputs, the template's readout and cosmic rays; host
+     seconds per prep step, render step, readout and file write, the
+     RICE encode, the visit's wall against the sum of its steps, launches
+     under `launches_by_path["visit_yaml"]`; gates (r) R22_S11's prep
+     against gate (o)'s digest, (s) the files read back (eimage and
+     RICE amps bit-equal, truth rows, OPD images and Zernike cards),
+     (a)-(f) on both CCDs; the FEA visit (the example catalog with
+     FEA_TERMS, doOpt, OPD and sag, a checkpoint a batch) run twice:
+     (t) the resumed eimage bit-equal with K1-K3 launched 0 times, (u)
+     the telescope and the OPD Zernikes against the JAX package's digest
+     (data/fea_opd_digest.npz); examples/flat.yaml on the full frame,
+     (v) the file round trip and the flat's statistics;
+ 12. the kernel report (JSON, all eleven kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last,
      the ok line.
 
@@ -444,14 +462,15 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
 
 def _ccd_gates(device, tag, label, host, cfg, spikes, frac, image, eimage,
                raw, modes, tally, sky, ro, gates_fft=None, masked=None,
-               landed_min: float = 0.8):
+               landed_min: float = 0.8, vign=None):
     """Gates (a)-(f) on one rendered CCD: (a) the pooled charge, (b)-(c)
     the FFT field and its spikes (computed once, when gates_fft is None),
     (d) the FFT noise, (e) the sky's mean and variance over the frame
     (less the `masked` flat pixel indices: the cosmic rays' hits), (f)
     the raw amps' prescan at the bias.  sky: (level, gradient, coarse
     vignetting, its step, fringe or None); landed_min: (a)'s floor on
-    the landed fraction.  Returns gates_fft."""
+    the landed fraction; vign: the FFT stamps' vignetting factors.  (b)-
+    (d) need FFT objects.  Returns gates_fft."""
     import numpy as np
     import torch
 
@@ -476,15 +495,19 @@ def _ccd_gates(device, tag, label, host, cfg, spikes, frac, image, eimage,
         f"landed fraction {landed:.6f} (> {landed_min:.3g})")
     _check(rel <= 1e-4 and landed > landed_min,
            "charge accounting or landed fraction out of bounds")
-    if gates_fft is None:
-        gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac, tag)
-    # (d) the FFT noise: the added charge about the spiked field
-    vis_sum = gates_fft["spiked_sum"]
-    log(f"[{tag}] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
-        f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
-        f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
-    _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
-           "FFT noise out of bounds")
+    if n_fft == 0:
+        log(f"[{tag}] {label} (b)-(d): no FFT objects")
+    else:
+        if gates_fft is None:
+            gates_fft = _fft_gates(device, host, modes, cfg, spikes, frac,
+                                   tag, vign)
+        # (d) the FFT noise: the added charge about the spiked field
+        vis_sum = gates_fft["spiked_sum"]
+        log(f"[{tag}] {label} (d): FFT charge added {fft_sum:.1f}, spiked "
+            f"noiseless field {vis_sum:.1f}: gap {fft_sum - vis_sum:.1f} "
+            f"(<= 5 sqrt = {5 * np.sqrt(vis_sum):.1f})")
+        _check(abs(fft_sum - vis_sum) <= 5 * np.sqrt(vis_sum),
+               "FFT noise out of bounds")
 
     # (e) the sky: the mean added charge and the residual's variance
     level, grad, vig, vig_step, fringe = sky
@@ -538,9 +561,11 @@ def _spikes(device, ro):
     return dict(kernel=kern, sat=ro.full_well), frac
 
 
-def _fft_gates(device, host, modes, cfg, spikes, frac, tag="ccd"):
+def _fft_gates(device, host, modes, cfg, spikes, frac, tag="ccd",
+               vign=None):
     """Gates (b) and (c) on the star field's noiseless synthesis with the
-    render's inputs; returns the spiked field's sum for gate (d)."""
+    render's inputs (vign: the FFT stamps' vignetting factors); returns
+    the spiked field's sum for gate (d)."""
     import torch
 
     from imsim_tpu_torch.image import fft_render as F
@@ -548,7 +573,7 @@ def _fft_gates(device, host, modes, cfg, spikes, frac, tag="ccd"):
 
     H, W = cfg.ysize, cfg.xsize
     psf = PP.make_psf_mtf(cfg)
-    stars, _ = PP.fft_plan(host, modes, cfg, psf, spikes)
+    stars, _ = PP.fft_plan(host, modes, cfg, psf, spikes, vign)
     a = stars.args(device)
     field, realized = F.star_frame(*a[:5], stars.Npad, H, W, stars.pad,
                                    cfg.pixel_scale)
@@ -1251,8 +1276,8 @@ def _instcat_band(device, small, wl, band, window, want):
 
     timer = Timer(device)
     tag = "instcat" if band == "r" else "instcat y"
-    ctx = TR.build_visit_context(wl["catalog"][band], sed_dirs=wl["sed_dir"],
-                                 overrides=INSTCAT_SMALL_CFG if small else None)
+    ctx = WL.visit_context(wl["catalog"][band], wl["sed_dir"],
+                           INSTCAT_SMALL_CFG if small else None)
     prep = TR.prepare_ccd(ctx, INSTCAT_DET, window=window, device=device)
     t = time.perf_counter()
     pieces = TR.sky_noise_pieces(ctx, prep, device=device)
@@ -1315,7 +1340,7 @@ def _instcat_band(device, small, wl, band, window, want):
     spikes = prep.spikes
     kern = spikes["kernel"]
     frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
-    rate = float(ctx.cfg["output.cosmic_ray_rate"])
+    rate = float(ctx.cfg["output"]["cosmic_ray_rate"])
     hits, _ = cosmic_ray_hits((cfg.ysize, cfg.xsize), prep.exptime,
                               ctx.seed * 189 + prep.det_num, ccd_rate=rate)
     # (a)'s floor: 0.8 of the pooled photons' mean chance to convert in
@@ -1385,12 +1410,389 @@ def _instcat_band(device, small, wl, band, window, want):
     return first
 
 
+# ---- phase 11: a visit from YAML through the CLI --------------------------
+
+# the FEA visit: the example catalog's header puts the boresight at
+# altitude 60 deg, so the gravity terms sit at zenith 30 deg; aos_dof moves
+# four degrees of freedom, rigid body (M2 dz, M2 rx) and bending (M1M3
+# mode 2, M2 mode 3)
+FEA_TERMS = {
+    "m1m3_gravity": {"zenith": "30 deg"},
+    "m1m3_temperature": {"m1m3_TBulk": 1.0},
+    "aos_dof": {"dof": [0.5, 0.0, 0.0, 2.0] + [0.0] * 8 + [0.3]
+                + [0.0] * 20 + [0.2] + [0.0] * 16}}
+OPD_FIELDS = [[0.0, 0.0], [1.0, 1.0]]
+OPD_JMAX = 28
+EXAMPLE_CATALOG = os.path.join("examples", "example_instance_catalog.txt")
+EXAMPLE_SEDS = os.path.join("examples", "seds")
+
+
+VISIT_DETS = ("R22_S11", "R10_S11")
+# the rehearsal: 2,000 lines over R22_S11's central window and 2,000 over
+# R10_S11, none above the FFT threshold (the star field spans the whole
+# frame: its plain synthesis takes tens of seconds on the CPU), one batch
+# a CCD without the silicon (its plain BF stencil takes seconds a pass
+# over a full frame), small screens and OPD maps, the FEA visit without
+# its readout, the flat on 256 x 256
+VISIT_SMALL = dict(n_lines=2000, window=(512, 512), margin=10.0,
+                   n_bright=0, total_photons=3e5)
+VISIT_SMALL_OVER = {"image.nbatch": 1, "image.sensor.type": "none",
+                    "input.atm_psf.screen_size": 102.4}
+
+
+def _user_yaml(path, over: dict, template="imsim-config-instcat"):
+    """A user config: `template` and one dotted key a line, each value in
+    flow form (JSON), read back through the port's YAML reader to check
+    that it means what it says (1e-06 would be a string there)."""
+    from imsim_tpu_torch.config.yaml_subset import safe_load
+
+    text = "".join([f"template: {template}\n"] + [
+        f"{k}: {json.dumps(v)}\n" for k, v in over.items()])
+    want = dict(template=template, **over)
+    _check(safe_load(text) == want, f"{path} does not read back as written")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _cli(device, argv):
+    """imsim_tpu_torch.__main__.main on `argv` with the device; returns
+    (results: shallow copies of each CCD's result, as the visit yields
+    them, wall seconds, launches)."""
+    import torch
+
+    from imsim_tpu_torch import __main__ as CLI
+    from imsim_tpu_torch.ops import _build
+
+    results = []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    rc = CLI.main([*argv, "--device", str(device), "-q"],
+                  on_result=lambda r: results.append(dict(r)))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    _check(rc == 0, f"the CLI returned {rc}")
+    return results, wall, launches
+
+
+def phase_visit(device, small: bool):
+    """A visit from YAML through the CLI, in process: two CCDs (R22_S11,
+    E2V, and R10_S11, ITL) of a catalog over both, with io_workers and
+    prefetch, OPD and truth outputs, gates (r), (s) and (a)-(f) tagged
+    [visit]; the FEA visit (example catalog, fea terms, doOpt, OPD and
+    sag, checkpointed) run twice, gates (t) and (u); the example flat
+    config, gate (v).  Files go under chiprun_out/visit/ (a temporary
+    directory in the rehearsal), removed after.  Returns the two-CCD
+    visit's launches."""
+    import shutil
+    import tempfile
+
+    from imsim_tpu_torch.benchmarks import instcat_workload as WL
+
+    t0 = time.perf_counter()
+    if small:
+        root = tempfile.mkdtemp(prefix="visit_")
+    else:
+        root = os.path.join(HERE, "chiprun_out", "visit")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+    try:
+        wl = WL.write_workload(os.path.join(root, "workload"),
+                               more_dets=VISIT_DETS[1:],
+                               **(VISIT_SMALL if small else {}))
+        log(f"[visit] workload written in {time.perf_counter() - t0:.1f} s:"
+            f" {VISIT_SMALL['n_lines'] if small else 120_000} object lines "
+            f"over each of {', '.join(VISIT_DETS)}")
+        launches = _visit_ccds(device, small, root, wl)
+        _visit_fea(device, small, root)
+        _visit_flat(device, small, root)
+        log(f"[visit] phase 11 took {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _visit_ccds(device, small, root, wl):
+    """The two-CCD visit: timings, launches, (r), (s), (a)-(f)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.catalog.opsim import read_instcat_header
+    from imsim_tpu_torch.config import runner as TR
+    from imsim_tpu_torch.config.interpreter import load_config
+    from imsim_tpu_torch.electronics.camera import get_camera
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.cosmic_rays import cosmic_ray_hits
+    from imsim_tpu_torch.io.fits import HDU
+    from imsim_tpu_torch.io.rice import serialize_rice_hdu
+    from imsim_tpu_torch.ops import _build
+
+    cam = get_camera()
+    out = os.path.join(root, "ccds")
+    over = {"input.instance_catalog.file_name": wl["catalog"]["r"],
+            "input.instance_catalog.sed_dir": wl["sed_dir"],
+            "output.dir": out,
+            "output.det_num": [cam.det_num(d) for d in VISIT_DETS],
+            "output.io_workers": 1,
+            "output.file_name": "eimage_{det_name}.fits",
+            "output.readout.file_name": "amp_{det_name}.fits",
+            "output.truth": {"file_name": "centroid_{det_name}.txt"},
+            "output.opd": {"fields": OPD_FIELDS, "jmax": OPD_JMAX,
+                           "file_name": "opd_{det_name}.fits"}}
+    if small:
+        over.update(VISIT_SMALL_OVER, **{"output.opd": dict(
+            over["output.opd"], nx=65)})
+    user = _user_yaml(os.path.join(root, "visit.yaml"), over)
+    cfg = load_config(user)
+    TR.reset_host_timers()
+    results, wall, launches = _cli(device, [user])
+    timers = dict(TR.HOST_TIMERS)
+    _check([r["det_name"] for r in results] == list(VISIT_DETS),
+           f"the visit rendered {[r['det_name'] for r in results]}")
+
+    # the launches the plan predicts: K1 and K2 once a batch, K3 once a
+    # sub-batch with the silicon
+    want = {k: 0 for k in _build.LAUNCHES}
+    if device.type == "cuda":
+        for r in results:
+            nb = PP.pooled_plan(r["host"], r["modes"], r["prep"].pcfg)[2]
+            want["scan_slot_prefix"] += nb
+            want["field_to_sensor"] += nb
+            if r["prep"].silicon is not None:
+                want["stencil_pair"] += nb * r["prep"].pcfg.nsub
+    steps = 0.0
+    for r in results:
+        prep, sec = r["prep"], r["seconds"]
+        steps += sum(v for k, v in sec.items() if k != "readout")
+        log(f"[visit] {r['det_name']} ({prep.ccd.vendor}, "
+            f"{prep.pcfg.ysize} x {prep.pcfg.xsize}): host prep "
+            + ", ".join(f"{k} {v:.3f}" for k, v in prep.seconds.items())
+            + " s; render " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         sec.items()) + " s; "
+            f"{prep.host.n_objects} objects")
+    steps += timers["prep_s"] + timers["readout_s"] + timers["io_s"]
+    log(f"[visit] 2 CCDs through the CLI: wall {wall:.2f} s; host timers "
+        f"prep {timers['prep_s']:.2f} s, readout {timers['readout_s']:.3f} "
+        f"s, file writes {timers['io_s']:.2f} s; steps sum {steps:.2f} s, "
+        f"hidden by the prefetch and IO threads {1 - wall / steps:.1%}; "
+        f"launches {launches} (expected {want})")
+    _check(launches == want, f"visit launches {launches} != {want}")
+    amps = results[0]["amps"]
+    t = time.perf_counter()
+    for k in range(amps.shape[0]):
+        serialize_rice_hdu(HDU(amps[k]))
+    log(f"[visit] RICE encode of {results[0]['det_name']}'s "
+        f"{amps.shape[0]} amps {tuple(amps.shape[1:])}: "
+        f"{time.perf_counter() - t:.3f} s (host)")
+
+    rate = float(cfg["output"]["cosmic_ray_rate"])
+    seed = int(read_instcat_header(wl["catalog"]["r"]).get("seed", 42))
+    for r in results:
+        det, prep = r["det_name"], r["prep"]
+        if det == "R22_S11":
+            _visit_gate_r(small, wl, r)
+        _visit_gate_s(out, r)
+        host, pcfg = prep.host, prep.pcfg
+        spikes = prep.spikes
+        kern = spikes["kernel"]
+        frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
+        hits, _ = cosmic_ray_hits((pcfg.ysize, pcfg.xsize), prep.exptime,
+                                  seed * 189 + prep.det_num, ccd_rate=rate)
+        n = host.n_objects
+        if prep.silicon is not None:
+            labs = host.scene.labs_icdf[:n].double().cpu().numpy()
+            conv = (1.0 - np.exp(-prep.silicon.thickness_um / labs)
+                    ).mean(axis=1)
+        else:
+            conv = np.ones(n)
+        w = np.where(r["modes"] != PP.FFT, host.flux[:n], 0.0)
+        landed_min = 0.8 * float((conv * w).sum() / w.sum())
+        eimage = torch.as_tensor(r["eimage"], device=device)
+        raw = torch.as_tensor(r["amps"], device=device)
+        _ccd_gates(device, "visit", det, host, pcfg, spikes, frac,
+                   r["image"], eimage, raw, r["modes"], r["tally"],
+                   r["pieces"], prep.readout, masked=hits,
+                   landed_min=landed_min, vign=prep.fft_vign)
+        del eimage, raw
+    return launches
+
+
+def _visit_gate_r(small, wl, r):
+    """(r): the visit's R22_S11 prep against gate (o)'s digest."""
+    import numpy as np
+
+    from imsim_tpu_torch.benchmarks import instcat_workload as WL
+
+    if small:
+        log("[visit] (r): the rehearsal's catalog has no JAX digest; the "
+            "full-size run holds the visit's R22_S11 prep to gate (o)'s")
+        return
+    with np.load(WL.DIGEST) as z:
+        want = {k: z[k] for k in z.files}
+    # the sky model for the digest's gradient plane, from the same config
+    ctx = WL.visit_context(wl["catalog"]["r"], wl["sed_dir"])
+    got = WL.prep_digest(ctx, r["prep"], r["pieces"], r["modes"], "r")
+    bad, gaps = WL.digest_mismatches(got, want, "r")
+    log(f"[visit] (r): the YAML visit's R22_S11 prep against gate (o)'s "
+        f"digest (its catalog with R10_S11's lines appended): {len(bad)} "
+        f"leaves past their bars (kept, ids, realized sum, modes exact; "
+        f"nominal flux and wavelength rows bit-equal; field angles <= 1 "
+        f"float32 ulp; sky level and gradient <= 1e-12 relative); gaps "
+        + json.dumps({k: float(v) for k, v in gaps.items()})
+        + "".join(f"\n[visit]   {k}: {v}" for k, v in bad.items()))
+    _check(not bad, "the YAML visit's prep differs from the digest")
+
+
+def _visit_gate_s(out, r):
+    """(s): the CCD's files read back: the eimage and the RICE amps bit
+    for bit, the truth rows and nominal fluxes, the OPD images and
+    cards."""
+    import numpy as np
+
+    from imsim_tpu_torch.io.fits import read_fits
+
+    det, host = r["det_name"], r["host"]
+    (_, eim), = read_fits(os.path.join(out, f"eimage_{det}.fits"))
+    e_ok = eim.astype("<f4").tobytes() == np.asarray(
+        r["eimage"], "<f4").tobytes()
+    amp = read_fits(os.path.join(out, f"amp_{det}.fits"))
+    a_ok = len(amp) == 17 and all(
+        d.dtype == np.int32 and np.array_equal(d, r["amps"][k])
+        for k, (_, d) in enumerate(amp[1:]))
+    with open(os.path.join(out, f"centroid_{det}.txt")) as f:
+        rows = [ln.split() for ln in f if not ln.startswith("#")]
+    n = host.n_objects
+    t_ok = len(rows) == n and [row[5] for row in rows] == [
+        f"{v:.2f}" for v in host.nominal_flux[:n]]
+    opd = read_fits(os.path.join(out, f"opd_{det}.fits"))
+    nx = opd[1][1].shape[0]
+    o_ok = len(opd) == 1 + len(OPD_FIELDS) and all(
+        d.shape == (nx, nx) and all(f"AZ_{j:03d}" in h
+                                    for j in range(1, OPD_JMAX + 1))
+        for h, d in opd[1:])
+    log(f"[visit] (s) {det}: eimage read back "
+        f"{'bit-equal' if e_ok else 'DIFFERS'}; amp file {len(amp)} HDUs, "
+        f"RICE segments "
+        f"{'bit-equal to the readout' if a_ok else 'DIFFER'}; truth "
+        f"{len(rows)} rows for {n} objects, nominal fluxes "
+        f"{'equal' if t_ok else 'DIFFER'}; OPD {len(opd) - 1} fields of "
+        f"{nx} x {nx} with AZ_001..AZ_{OPD_JMAX:03d}: "
+        f"{'yes' if o_ok else 'NO'}")
+    _check(e_ok and a_ok and t_ok and o_ok, f"{det}'s files differ")
+
+
+def _visit_fea(device, small, root):
+    """The FEA visit twice, the second resumed from the first's
+    checkpoints: (t) and (u)."""
+    import numpy as np
+
+    from imsim_tpu_torch.catalog.opsim import read_instcat_header
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.io.fits import read_fits
+    from imsim_tpu_torch.optics.aos import OpticalZernikes
+    from imsim_tpu_torch.optics.loader import load_telescope
+
+    opd = {"fields": OPD_FIELDS, "jmax": OPD_JMAX}
+    over = {"input.instance_catalog.file_name": os.path.join(
+                HERE, EXAMPLE_CATALOG),
+            "input.instance_catalog.sed_dir": os.path.join(HERE,
+                                                           EXAMPLE_SEDS),
+            "input.telescope.fea": FEA_TERMS, "input.atm_psf.doOpt": True,
+            "output.det_num": [94], "output.opd": opd, "output.sag": {},
+            "image.nbatch_per_checkpoint": 1,
+            "input.checkpoint.dir": os.path.join(root, "checkpoints")}
+    if small:
+        over.update(VISIT_SMALL_OVER, **{"output.opd": dict(opd, nx=65),
+                                         "output.sag": {"nx": 65},
+                                         "output.readout.enabled": False})
+    user = _user_yaml(os.path.join(root, "fea.yaml"), over)
+    runs = [_cli(device, [user, f"output.dir={os.path.join(root, d)}"])
+            for d in ("fea", "fea_resumed")]
+    (r1, w1, l1), (r2, w2, l2) = [(res[0], w, n) for res, w, n in runs]
+    nb = PP.pooled_plan(r1["host"], r1["modes"], r1["prep"].pcfg)[2]
+    ks = ("scan_slot_prefix", "field_to_sensor", "stencil_pair")
+    same = np.asarray(r1["eimage"]).tobytes() == \
+        np.asarray(r2["eimage"]).tobytes()
+    log(f"[visit] (t): FEA visit {w1:.2f} s ({r1['host'].n_objects} "
+        f"objects, {nb} batches; K1-K3 launches "
+        f"{[l1[k] for k in ks]}), resumed from its checkpoints "
+        f"{w2:.2f} s: K1-K3 launches {[l2[k] for k in ks]} (bar 0), "
+        f"eimage {'bit-equal' if same else 'DIFFERS'}")
+    _check(same and not any(l2[k] for k in ks)
+           and (device.type != "cuda" or l1["scan_slot_prefix"] == nb),
+           "the resumed FEA visit differs or rendered again")
+
+    with np.load(os.path.join(HERE, "imsim_tpu_torch", "data",
+                              "fea_opd_digest.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    cfg_ok = str(want["config"]) == json.dumps(dict(
+        fea=FEA_TERMS, fields=OPD_FIELDS, jmax=OPD_JMAX,
+        catalog=EXAMPLE_CATALOG), sort_keys=True)
+    ods = read_instcat_header(os.path.join(HERE, EXAMPLE_CATALOG))
+    tel = load_telescope(band=ods.get("band", "r"), fea=FEA_TERMS,
+                         rotTelPos=float(ods.get("rotTelPos", 0.0))
+                         * np.pi / 180)
+    OpticalZernikes(seed=int(ods.get("seed", 42))).apply_to(tel)
+    rel = max(float(np.abs(getattr(tel.fiducial, k) - want[k]).max()
+                    / max(float(np.abs(want[k]).max()), 1e-300))
+              for k in ("z0", "c", "kappa", "coefs", "aper", "shift", "rot",
+                        "zk"))
+    hdus = read_fits(os.path.join(root, "fea", "opd.fits"))
+    zk = np.array([[h[f"AZ_{j:03d}"] for j in range(1, OPD_JMAX + 1)]
+                   for h, _ in hdus[1:]])
+    gap = float(np.abs(zk - want["opd_zk"]).max())
+    wl_ok = all(h["WAVELEN"] == float(want["wavelength"]) for h, _ in hdus[1:])
+    sag = read_fits(os.path.join(root, "fea", "sag.fits"))
+    log(f"[visit] (u): FEA / AOS telescope against the JAX package's digest "
+        f"(config {'equal' if cfg_ok else 'DIFFERS'}): design max rel gap "
+        f"{rel:.3g} (bar 1e-12); the OPD file's Zernikes at "
+        f"{len(zk)} fields, |Z4| {abs(zk[0, 3]):.1f} nm, max gap "
+        f"{gap:.3g} nm (bar 1e-6), wavelength "
+        f"{'equal' if wl_ok else 'DIFFERS'}; sag file {len(sag) - 1} "
+        f"surfaces")
+    _check(cfg_ok and rel <= 1e-12 and gap <= 1e-6 and wl_ok
+           and len(sag) == 4, "FEA / AOS optics differ from the JAX digest")
+
+
+def _visit_flat(device, small, root):
+    """examples/flat.yaml through the CLI on the full R22_S11 frame: (v)."""
+    import numpy as np
+
+    from imsim_tpu_torch.image.flat import flat_statistics
+    from imsim_tpu_torch.io.fits import read_fits
+
+    out = os.path.join(root, "flat")
+    argv = [os.path.join(HERE, "examples", "flat.yaml"), f"output.dir={out}",
+            "output.readout.enabled=false"]
+    if small:
+        argv += ["image.xsize=256", "image.ysize=256"]
+    res, wall, launches = _cli(device, argv)
+    r = res[0]
+    (_, data), = read_fits(os.path.join(out, "flat_R22_S11.fits"))
+    exact = data.astype("<f4").tobytes() == np.asarray(
+        r["eimage"], "<f4").tobytes()
+    st = flat_statistics(np.asarray(r["eimage"]))
+    cpp = 80_000.0
+    log(f"[visit] (v): examples/flat.yaml, {data.shape[0]} x {data.shape[1]}"
+        f": {wall:.2f} s through the CLI (launches "
+        f"{ {k: v for k, v in launches.items() if v} }); file round trip "
+        f"{'exact' if exact else 'DIFFERS'}; mean {st['mean']:.2f} (rel gap "
+        f"{st['mean'] / cpp - 1:+.5f}, bar 0.005), var/mean "
+        f"{st['var_over_mean']:.4f} (< 0.97)")
+    _check(exact and abs(st["mean"] / cpp - 1) <= 0.005
+           and st["var_over_mean"] < 0.97, "the YAML flat is out of bounds")
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-10 on `device`; returns the kernel report.  Each row's
+    """Phases 2-11 on `device`; returns the kernel report.  Each row's
     `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
     and `launches_by_path` the count on every path that drives it
     (`itl_ccd`: phase 9's CCD built from the pointing; `instcat_ccd`:
-    phase 10's CCD from the instance catalog, its cold r render)."""
+    phase 10's CCD from the instance catalog, its cold r render;
+    `visit_yaml`: phase 11's two-CCD visit through the CLI)."""
     import torch
 
     _import_port()
@@ -1417,6 +1819,7 @@ def run(device, small: bool = False) -> dict:
     del state
     paths["itl_ccd"] = phase_pointing(device, small)["launches"]
     paths["instcat_ccd"] = phase_instcat(device, small)
+    paths["visit_yaml"] = phase_visit(device, small)
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if c[row["name"]]}

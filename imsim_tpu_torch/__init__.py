@@ -13,7 +13,9 @@ its pointing and detector by `convert.build_ccd_state`, on the host;
 `convert.load_ccd_state` reads the bench fixture the JAX package
 exported.
 
-Entry points: `convert.build_ccd_state`,
+Entry points: `python -m imsim_tpu_torch user.yaml [key=value ...]`
+and `config.runner.run_visit` (a visit from a YAML config to FITS files
+on disk), `convert.build_ccd_state`,
 `image.photon_pooling.render_ccd_pooled` (the pooled CCD,
 through the optics chain or the analytic PSF), `image.ccd_render.
 render_ccd` (the unpooled analytic CCD), `image.ccd_render.

@@ -5,7 +5,10 @@ and the SED library its objects name.
     python -m imsim_tpu_torch.benchmarks.instcat_workload OUT_DIR [--seed 0]
 
 writes OUT_DIR/instcat_r.txt, its y-band copy OUT_DIR/instcat_y.txt
-(`filter 5`) and OUT_DIR/seds/{starSED,galaxySED}/... :
+(`filter 5`) and OUT_DIR/seds/{starSED,galaxySED}/... (`--dets
+R22_S11,R10_S11` appends 120,000 lines over each further CCD from its
+own seed stream; the first CCD's lines and the default file stay as
+they are):
 
   * the header of examples/example_instance_catalog.txt:1-9 (the bench
     pointing: (30, -20) deg, mjd 60674.2, seeing 0.7, 30 s, rotator 0,
@@ -113,26 +116,27 @@ def _rates(names, sed_dir, bandpass, z_grid):
     return out
 
 
-def write_workload(out_dir: str, seed: int = 0, n_lines: int = 120_000,
-                   det_name: str = "R22_S11", margin: float = 300.0,
-                   window=None, n_bright: int = 24,
-                   total_photons: float = 1.6e8, edge_pix: float = 100.0):
-    """Write the workload; returns dict(catalog={band: path},
-    sed_dir, sha256={band: hex digest of the catalog's bytes})."""
-    from ..catalog.instcat import RUBIN_AREA
-    from ..catalog.opsim import read_instcat_header
+def visit_context(catalog: str, sed_dir: str, over: dict | None = None):
+    """config.runner.build_visit_context of a visit over `catalog`: the
+    instance-catalog template with the catalog and its SED library, and
+    `over` (dotted keys)."""
+    from ..config.interpreter import load_config
     from ..config.runner import build_visit_context
+
+    return build_visit_context(load_config({
+        "template": "imsim-config-instcat",
+        "input.instance_catalog.file_name": catalog,
+        "input.instance_catalog.sed_dir": sed_dir, **(over or {})}))
+
+
+def _object_lines(rng, ctx, det_name, window, n, margin, n_bright,
+                  total_photons, edge_pix, stars, gals, rate_star, rate_gal,
+                  z_grid, id0=0):
+    """`n` object lines over one CCD's box (or its central window) widened
+    by `margin`, drawn from `rng`, ids from id0."""
+    from ..catalog.instcat import RUBIN_AREA
     from ..convert import ccd_optics
 
-    os.makedirs(out_dir, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    sed_dir = os.path.join(out_dir, "seds")
-    stars, gals = write_sed_library(sed_dir, rng)
-    head = "".join(f"{k} {v}\n" for k, v in HEADER)
-    path_r = os.path.join(out_dir, "instcat_r.txt")
-    with open(path_r, "w") as f:
-        f.write(head)
-    ctx = build_visit_context(read_instcat_header(path_r), sed_dirs=sed_dir)
     ccd = ctx.camera[det_name]
     nx, ny = ccd.bounds.width, ccd.bounds.height
     wcs = ccd_optics(ctx.wcs_factory, ccd)[0]
@@ -143,7 +147,6 @@ def write_workload(out_dir: str, seed: int = 0, n_lines: int = 120_000,
         h, w = (float(v) for v in window)
         x0, y0 = (nx - w) / 2, (ny - h) / 2
 
-    n = n_lines
     t = rng.uniform(0, 1, n)
     kind = np.where(t < 0.25, 0, np.where(t < 0.90, 1, 2))
     kind[:n_bright] = 0
@@ -175,9 +178,6 @@ def write_workload(out_dir: str, seed: int = 0, n_lines: int = 120_000,
     flux[:n_bright] = 10 ** rng.uniform(*BRIGHT_LOG_FLUX, n_bright)
     # magnorm from the SED's r-band rate at the object's redshift (dust
     # left out: the total lands within a factor 2 of total_photons)
-    z_grid = np.linspace(0.0, 2.5, 51)
-    rate_star = _rates(stars, sed_dir, ctx.bandpass, z_grid[:1])[:, 0]
-    rate_gal = _rates(gals, sed_dir, ctx.bandpass, z_grid)
     f = z / z_grid[1]
     j = np.minimum(f.astype(int), len(z_grid) - 2)
     k = np.where(gal, sed_idx, 0)
@@ -202,10 +202,42 @@ def write_workload(out_dir: str, seed: int = 0, n_lines: int = 120_000,
             sed = gals[sed_idx[i]]
             dust = f"CCM {int_av[i]:.3f} 3.1 CCM {mw_av[i]:.3f} 3.1"
         lines.append(
-            f"object {i} {ra[i]:.7f} {dec[i]:.7f} {magnorm[i]:.4f} {sed} "
-            f"{z[i]:.4f} {gamma[i, 0]:.5f} {gamma[i, 1]:.5f} "
+            f"object {id0 + i} {ra[i]:.7f} {dec[i]:.7f} {magnorm[i]:.4f} "
+            f"{sed} {z[i]:.4f} {gamma[i, 0]:.5f} {gamma[i, 1]:.5f} "
             f"{kappa[i]:.5f} 0 0 {shape} {dust}\n")
-    body = "".join(lines)
+    return "".join(lines)
+
+
+def write_workload(out_dir: str, seed: int = 0, n_lines: int = 120_000,
+                   det_name: str = "R22_S11", margin: float = 300.0,
+                   window=None, n_bright: int = 24,
+                   total_photons: float = 1.6e8, edge_pix: float = 100.0,
+                   more_dets=()):
+    """Write the workload; returns dict(catalog={band: path},
+    sed_dir, sha256={band: hex digest of the catalog's bytes}).
+    more_dets: further CCDs, each with n_lines lines over its own box
+    (never a window) from its own seed stream, appended after
+    det_name's lines, which stay as they are."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    sed_dir = os.path.join(out_dir, "seds")
+    stars, gals = write_sed_library(sed_dir, rng)
+    head = "".join(f"{k} {v}\n" for k, v in HEADER)
+    path_r = os.path.join(out_dir, "instcat_r.txt")
+    with open(path_r, "w") as f:
+        f.write(head)
+    ctx = visit_context(path_r, sed_dir)
+    z_grid = np.linspace(0.0, 2.5, 51)
+    rate_star = _rates(stars, sed_dir, ctx.bandpass, z_grid[:1])[:, 0]
+    rate_gal = _rates(gals, sed_dir, ctx.bandpass, z_grid)
+    common = (stars, gals, rate_star, rate_gal, z_grid)
+    body = _object_lines(rng, ctx, det_name, window, n_lines, margin,
+                         n_bright, total_photons, edge_pix, *common)
+    for k, det in enumerate(more_dets, start=1):
+        body += _object_lines(np.random.default_rng((seed, k)), ctx, det,
+                              None, n_lines, margin, n_bright,
+                              total_photons, edge_pix, *common,
+                              id0=k * n_lines)
     out = dict(catalog={}, sed_dir=sed_dir, sha256={})
     for band, filt in (("r", "2"), ("y", "5")):
         text = head.replace("filter 2\n", f"filter {filt}\n") + body
@@ -334,8 +366,14 @@ def main(argv=None) -> int:
     ap.add_argument("out_dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-lines", type=int, default=120_000)
+    ap.add_argument("--dets", default="R22_S11",
+                    help="comma-separated CCDs: the first gets the default "
+                         "workload's lines, each further one n-lines of its "
+                         "own after them")
     args = ap.parse_args(argv)
-    res = write_workload(args.out_dir, args.seed, args.n_lines)
+    dets = args.dets.split(",")
+    res = write_workload(args.out_dir, args.seed, args.n_lines,
+                         det_name=dets[0], more_dets=tuple(dets[1:]))
     for band, path in res["catalog"].items():
         print(f"{band}: {path} sha256 {res['sha256'][band]}")
     return 0

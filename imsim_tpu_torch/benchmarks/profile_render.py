@@ -192,7 +192,7 @@ def main_instcat(warm: int = 3, band: str = "r") -> dict:
 
     from ..config import runner as TR
     from ..image import photon_pooling as PP
-    from .instcat_workload import write_workload
+    from .instcat_workload import visit_context, write_workload
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: needs a CUDA device")
@@ -202,8 +202,7 @@ def main_instcat(warm: int = 3, band: str = "r") -> dict:
         t0 = time.perf_counter()
         wl = write_workload(d)
         write_s = time.perf_counter() - t0
-        ctx = TR.build_visit_context(wl["catalog"][band],
-                                     sed_dirs=wl["sed_dir"])
+        ctx = visit_context(wl["catalog"][band], wl["sed_dir"])
         prep = TR.prepare_ccd(ctx, "R22_S11", device=device)
         host_s = dict(ctx.seconds, **prep.seconds)
 

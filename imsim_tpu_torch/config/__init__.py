@@ -1,1 +1,2 @@
-"""The runner's per-CCD path (imsim_tpu/config counterpart)."""
+"""The YAML config layer and the visit driver (imsim_tpu/config
+counterpart): yaml_subset, interpreter, registry, runner."""

@@ -1,9 +1,10 @@
-"""Cosmic rays (imsim_tpu/image/cosmic_rays.py counterpart, without the
-catalog's file formats).
+"""Cosmic rays (imsim_tpu/image/cosmic_rays.py counterpart).
 
 The footprint bank (muon tracks, worms, spots) and the Poisson draw of
 the CRs' number, footprints and positions are host numpy, copied from
-the JAX package so that the same seeds give bit-equal hits.  The
+the JAX package so that the same seeds give bit-equal hits; a saved
+bank (.npz) or the reference's measured span catalog (FITS) loads in
+its place.  The
 painting runs on the eimage's device: the hits cross as three small
 arrays and never the 64 MB frame.
 """
@@ -66,6 +67,54 @@ class CosmicRayCatalog:
             else:
                 fps.append(_synth_spot(rng))
         return cls(fps)
+
+    @classmethod
+    def load(cls, path):
+        z = np.load(path)
+        fps = []
+        i = 0
+        for n in z["lens"]:
+            fps.append((z["x"][i:i + n], z["y"][i:i + n], z["e"][i:i + n]))
+            i += n
+        return cls(fps)
+
+    @classmethod
+    def read_catalog_fits(cls, path, extname="COSMIC_RAYS"):
+        """Read the reference's measured CR footprint catalog
+        (imsim/cosmic_rays.py:112-147): a FITS binary table of spans
+        with columns fp_id (int), x0, y0 (span start pixel) and
+        pixel_values (variable-length int array along +x).  Spans with
+        the same fp_id form one footprint; each span's pixels become
+        (dx, dy, e-) samples relative to the footprint's first span.
+
+        Returns (catalog, ccd_rate) with ccd_rate = n_footprints /
+        EXPTIME from the table header (the reference's default rate
+        derivation, :123-126)."""
+        from ..io.fits import read_bintable, read_fits
+
+        for hdr, payload in read_fits(path):
+            if str(hdr.get("EXTNAME", "")).strip() == extname:
+                break
+        else:
+            raise KeyError(f"no {extname} extension in {path}")
+        tab = read_bintable(hdr, payload)
+        fps = {}
+        for fp, x0, y0, vals in zip(tab["fp_id"], tab["x0"], tab["y0"],
+                                    tab["pixel_values"]):
+            fps.setdefault(int(fp), []).append(
+                (int(x0), int(y0), np.asarray(vals, float)))
+        out = []
+        for spans in fps.values():
+            ox, oy = spans[0][0], spans[0][1]
+            xs, ys, es = [], [], []
+            for x0, y0, vals in spans:
+                xs.append(np.arange(len(vals), dtype=float) + (x0 - ox))
+                ys.append(np.full(len(vals), float(y0 - oy)))
+                es.append(vals)
+            out.append((np.concatenate(xs), np.concatenate(ys),
+                        np.concatenate(es)))
+        exptime = float(hdr.get("EXPTIME", 1.0))
+        return cls(out), len(out) / max(exptime, 1e-9)
 
 
 _default_catalog = None

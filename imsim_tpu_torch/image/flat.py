@@ -13,8 +13,9 @@ per pixel, so the brighter-fatter feedback follows the charge:
     sub-batches of at most 16,777,216 photons, with the static tree-ring
     field folded in.
 
-The whole CCD is one device array.  Checkpointing is a ROADMAP queue A
-item (no `checkpointer` argument).
+The whole CCD is one device array.  With a `checkpointer`
+(io.checkpoint), the image and the next iteration are saved every 10
+iterations (host numpy) and a saved state resumes there.
 """
 from __future__ import annotations
 
@@ -66,19 +67,30 @@ def n_iterations(cfg: FlatConfig) -> int:
     return int(np.ceil(cfg.counts_per_pixel / cfg.counts_per_iter))
 
 
+def _resume(checkpointer, key, shape, device):
+    """(image, first iteration) from a checkpoint, or a zero image."""
+    saved = None if checkpointer is None else checkpointer.load(key)
+    if saved is None:
+        return torch.zeros(shape, dtype=torch.float32, device=device), 0
+    return torch.as_tensor(saved["image"], device=device), saved["next_iter"]
+
+
 def build_flat(seed: int, cfg: FlatConfig,
                params: SiliconParams | None = None,
-               device="cuda") -> torch.Tensor:
+               device="cuda", checkpointer=None) -> torch.Tensor:
     """Full-CCD flat with BF-driven pixel-area evolution: (ysize, xsize)
     float32 electrons on `device`."""
     params = params or SiliconParams.make()
-    image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
-                        device=device)
+    image, start = _resume(checkpointer, "flat", (cfg.ysize, cfg.xsize),
+                           device)
     n_iter = n_iterations(cfg)
     lam = float(np.float32(cfg.counts_per_pixel / n_iter))
-    for k in range(n_iter):
+    for k in range(start, n_iter):
         image = _flat_iteration(stream(seed, "flat", k, device=device),
                                 image, lam, params)
+        if checkpointer is not None and (k + 1) % 10 == 0:
+            checkpointer.save("flat", dict(image=image.cpu().numpy(),
+                                           next_iter=k + 1))
     return image
 
 
@@ -117,24 +129,27 @@ def photon_flat_plan(cfg: FlatConfig):
 
 def build_flat_photons(seed: int, cfg: FlatConfig, wl_icdf,
                        params: SiliconParams | None = None,
-                       device="cuda") -> torch.Tensor:
+                       device="cuda", checkpointer=None) -> torch.Tensor:
     """SED photon-shooting flat: counts_per_iter photons per pixel per
     iteration (expected, before photons lost deeper than the device),
     iterated to counts_per_pixel.  wl_icdf: (K,) inverse CDF of the
     illumination's wavelengths.  (ysize, xsize) float32 on `device`."""
     params = params or SiliconParams.make()
-    image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
-                        device=device)
+    image, start = _resume(checkpointer, "flat_phot",
+                           (cfg.ysize, cfg.xsize), device)
     n_iter, n_sub, per = photon_flat_plan(cfg)
     wl_row = torch.as_tensor(np.asarray(wl_icdf, np.float32), device=device)
     tr_field = None
     if params.tr_active:
         tr_field = tree_ring_field(params, (cfg.ysize, cfg.xsize), device)
-    for k in range(n_iter):
+    for k in range(start, n_iter):
         for s in range(n_sub):
             image = _flat_photon_iteration(
                 stream(seed, "flatphot", k * n_sub + s, device=device),
                 image, wl_row, params, per, tr_field=tr_field)
+        if checkpointer is not None and (k + 1) % 10 == 0:
+            checkpointer.save("flat_phot", dict(image=image.cpu().numpy(),
+                                                next_iter=k + 1))
     return image
 
 

@@ -63,6 +63,9 @@ class PoolingConfig:
     diffraction_field_rotation: bool = True
     # render every FFT-capable object through the Fourier branch
     force_fft: bool = False
+    # pooled batches between two checkpoints (render_ccd_pooled's
+    # checkpointer)
+    nbatch_per_checkpoint: int = 1
 
 
 def classify_objects(host: SceneHost, cfg: PoolingConfig,
@@ -271,7 +274,8 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
                       silicon: SiliconParams | None = None, tel=None,
                       ctx=None, screens=None, sk_table=None, *,
                       profiles, spikes=None, track_realized: bool = False,
-                      fft_vign=None, tally: dict | None = None):
+                      fft_vign=None, tally: dict | None = None,
+                      checkpointer=None):
     """Render one CCD eimage on the scene's device: the FFT pass over
     the bright objects, then the pooled photons through the full optics
     chain (render.shoot_full) when `tel` and `ctx` are given, else
@@ -287,7 +291,13 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     vignetting factor of the FFT flux.  tally: optional dict that
     receives "fft" (the charge the FFT pass added), "in_frame" (the
     pooled flux binned inside the frame) and "pooled" (photons shot), as
-    float64 device scalars."""
+    float64 device scalars.
+
+    checkpointer: an io.checkpoint.Checkpointer; the image, the next
+    batch and the realized fluxes are saved under "pooled" after
+    the FFT pass and every cfg.nbatch_per_checkpoint batches (host
+    numpy), and a saved state resumes there: its batches and FFT pass
+    are not rendered again."""
     dev = host.scene.device
     optics = tel is not None and ctx is not None
     psf_tables = None if optics else analytic_psf_tables(
@@ -297,11 +307,26 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
                         device=dev)
     realized = torch.zeros(host.scene.n, dtype=torch.float64, device=dev)
-    if np.any(modes == FFT):
+    start_batch, fft_done = 0, False
+    saved = None if checkpointer is None else checkpointer.load("pooled")
+    if saved is not None:
+        image = torch.as_tensor(saved["image"], device=dev)
+        realized = torch.as_tensor(saved["realized"], device=dev)
+        start_batch, fft_done = saved["next_batch"], saved["fft_done"]
+
+    def save(next_batch):
+        checkpointer.save("pooled", dict(
+            image=image.cpu().numpy(), next_batch=next_batch,
+            fft_done=fft_done, realized=realized.cpu().numpy()))
+
+    if not fft_done and start_batch == 0 and np.any(modes == FFT):
         image, realized[:host.n_objects] = _fft_pass(
             image, host, modes, cfg, psf_mtf, seed, spikes=spikes,
             vign=fft_vign)
-    if tally is not None:
+        fft_done = True
+        if checkpointer is not None:
+            save(0)
+    if tally is not None and saved is None:
         # the pass runs on an empty frame: its sum is what it added
         tally["fft"] = image.sum(dtype=torch.float64)
     cum, total, nb, batch_size = pooled_plan(host, modes, cfg)
@@ -323,13 +348,16 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     families = tuple(sorted(set(
         host.scene.params[:host.n_objects, COL_TYPE].to(torch.int64)
         .tolist())))
-    for b in range(nb):
+    for b in range(start_batch, nb):
         image = _pooled_batch_step(
             stream(seed, "photons", b, device=dev),
             stream(seed, "si", b, device=dev), host.scene, obj_map, cum_dev,
             mat, total, b, nb, batch_size, tel, ctx, screens, sk_table,
             psf_tables, silicon, image, cfg, pair, share, tr_field, families,
             profiles, tally, realized if track_realized else None)
+        if checkpointer is not None and \
+                (b + 1) % cfg.nbatch_per_checkpoint == 0:
+            save(b + 1)
     return image, modes, realized.cpu().numpy()
 
 

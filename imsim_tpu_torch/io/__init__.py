@@ -1,2 +1,1 @@
-"""File input: the FITS reader (the writers come with the visit runner,
-ROADMAP A6)."""
+"""Files: the FITS reader and writers, the RICE codec, checkpoints."""

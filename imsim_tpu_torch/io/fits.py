@@ -1,22 +1,166 @@
-"""FITS reader, no astropy (the reader half of imsim_tpu/io/fits.py):
-primary and image extensions with BSCALE/BZERO, binary tables, gzip.
+"""FITS reader and writer, no astropy (imsim_tpu/io/fits.py
+counterpart, the same bytes): primary and image extensions with
+BSCALE/BZERO, binary tables (fixed and variable-length columns), RICE_1
+tile-compressed int32 images (io/rice.py), gzip.
 
-FITS-stamp objects (`image/scene._fits_point_cloud`) and a measured
-skyline surface read their images through `read_fits`.  A RICE tile-
-compressed HDU raises NotImplementedError: the codec comes with the FITS
-writers (ROADMAP A6).
+The visit driver writes the eimage, the raw amp file and the OPD and sag
+outputs through `write_fits`; FITS-stamp objects and a measured skyline
+surface read their images through `read_fits`.  A header card's text is
+`_format_value`'s, so the files are byte-equal to the JAX package's.
 """
 from __future__ import annotations
 
 import gzip
+import io
+import os
 import re
 
 import numpy as np
 
 BLOCK = 2880
 
+
+def _format_value(v):
+    if isinstance(v, bool):
+        return "T" if v else "F"
+    if isinstance(v, (int, np.integer)):
+        return str(int(v))
+    if isinstance(v, (float, np.floating)):
+        s = f"{float(v):.16G}"
+        if "." not in s and "E" not in s and "INF" not in s and "NAN" not in s:
+            s += "."
+        return s
+    # string
+    s = str(v).replace("'", "''")
+    return f"'{s:<8s}'"
+
+
+def _card(key, value=None, comment=None):
+    key = key.upper()[:8]
+    if key in ("COMMENT", "HISTORY", ""):
+        text = f"{key:<8s}{str(value or ''):<72s}"[:80]
+        return text.ljust(80)
+    vs = _format_value(value)
+    if vs.startswith("'"):
+        body = f"{key:<8s}= {vs:<20s}"
+    else:
+        body = f"{key:<8s}= {vs:>20s}"
+    if comment:
+        body += f" / {comment}"
+    return body[:80].ljust(80)
+
+
+def _header_bytes(cards):
+    text = "".join(cards) + "END".ljust(80)
+    pad = (-len(text)) % BLOCK
+    return (text + " " * pad).encode("ascii")
+
+
+_BITPIX = {
+    np.dtype(">u1"): 8, np.dtype(">i2"): 16, np.dtype(">i4"): 32,
+    np.dtype(">i8"): 64, np.dtype(">f4"): -32, np.dtype(">f8"): -64,
+}
+
+
+class HDU:
+    """One header-data unit: dict-like header + ndarray or None."""
+
+    def __init__(self, data=None, header=None, name=None, is_primary=False,
+                 compress=None):
+        self.data = data
+        self.header = dict(header or {})
+        self.name = name
+        self.is_primary = is_primary
+        self.compress = compress  # None | 'rice'
+
+
+def _serialize_image_hdu(hdu: HDU, primary: bool) -> bytes:
+    data = hdu.data
+    cards = []
+    if data is None:
+        if primary:
+            cards.append(_card("SIMPLE", True, "conforms to FITS standard"))
+            cards.append(_card("BITPIX", 8))
+            cards.append(_card("NAXIS", 0))
+            cards.append(_card("EXTEND", True))
+        else:
+            cards.append(_card("XTENSION", "IMAGE", "Image extension"))
+            cards.append(_card("BITPIX", 8))
+            cards.append(_card("NAXIS", 0))
+            cards.append(_card("PCOUNT", 0))
+            cards.append(_card("GCOUNT", 1))
+        for k, v in hdu.header.items():
+            cards.append(_card(k, v))
+        return _header_bytes(cards)
+
+    data = np.asarray(data)
+    # Integer data with unsigned range uses BZERO convention
+    bzero = 0
+    if data.dtype == np.uint16:
+        data = (data.astype(np.int32) - 32768).astype(np.int16)
+        bzero = 32768
+    elif data.dtype == np.uint32:
+        data = (data.astype(np.int64) - 2147483648).astype(np.int32)
+        bzero = 2147483648
+    be = data.astype(data.dtype.newbyteorder(">"))
+    bitpix = _BITPIX[be.dtype]
+    if primary:
+        cards = [_card("SIMPLE", True, "conforms to FITS standard"),
+                 _card("BITPIX", bitpix),
+                 _card("NAXIS", data.ndim)]
+    else:
+        cards = [_card("XTENSION", "IMAGE", "Image extension"),
+                 _card("BITPIX", bitpix),
+                 _card("NAXIS", data.ndim)]
+    for i, n in enumerate(reversed(data.shape)):
+        cards.append(_card(f"NAXIS{i + 1}", n))
+    if not primary:
+        cards.append(_card("PCOUNT", 0))
+        cards.append(_card("GCOUNT", 1))
+    if primary:
+        cards.append(_card("EXTEND", True))
+    if bzero:
+        cards.append(_card("BZERO", bzero))
+        cards.append(_card("BSCALE", 1))
+    if hdu.name:
+        cards.append(_card("EXTNAME", hdu.name))
+    for k, v in hdu.header.items():
+        cards.append(_card(k, v))
+    payload = be.tobytes()
+    pad = (-len(payload)) % BLOCK
+    return _header_bytes(cards) + payload + b"\0" * pad
+
+
+def write_fits(path, hdus, overwrite=True):
+    """hdus: HDU list, or a bare ndarray (single image file)."""
+    if isinstance(hdus, np.ndarray):
+        hdus = [HDU(hdus)]
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(path)
+    buf = io.BytesIO()
+    for i, hdu in enumerate(hdus):
+        if isinstance(hdu, BinTableHDU):
+            if i == 0:
+                buf.write(_serialize_image_hdu(HDU(None), primary=True))
+            buf.write(_serialize_bintable_hdu(hdu))
+        elif hdu.compress == "rice" and hdu.data is not None and i > 0:
+            from .rice import serialize_rice_hdu
+            buf.write(serialize_rice_hdu(hdu))
+        else:
+            buf.write(_serialize_image_hdu(hdu, primary=(i == 0)))
+    raw = buf.getvalue()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if str(path).endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=6) as f:
+            f.write(raw)
+    else:
+        with open(path, "wb") as f:
+            f.write(raw)
+
 _TFORM_SCALAR = {"L": ">u1", "B": ">u1", "I": ">i2", "J": ">i4",
                  "K": ">i8", "E": ">f4", "D": ">f8"}
+_NP_TO_TFORM = {"u1": "B", "i2": "I", "i4": "J", "i8": "K",
+                "f4": "E", "f8": "D"}
 _DTYPES = {8: ">u1", 16: ">i2", 32: ">i4", 64: ">i8", -32: ">f4", -64: ">f8"}
 
 
@@ -76,9 +220,80 @@ def read_bintable(header: dict, payload: bytes) -> dict:
     return out
 
 
+class BinTableHDU:
+    """Binary-table HDU for write_fits: columns is an ordered dict
+    {name: (nrow,) array | (nrow, rep) array | list of 1-D arrays
+    (variable length, stored as P descriptors + heap)}."""
+
+    def __init__(self, columns: dict, name=None, header=None):
+        self.columns = dict(columns)
+        self.name = name
+        self.header = dict(header or {})
+        self.is_primary = False
+        self.compress = None
+        self.data = None
+
+
+def _serialize_bintable_hdu(hdu: BinTableHDU) -> bytes:
+    names = list(hdu.columns)
+    nrow = None
+    specs = []            # (name, tform, cell bytes function)
+    heap = bytearray()
+    cells = []
+    for name in names:
+        col = hdu.columns[name]
+        if isinstance(col, list):      # variable-length
+            nrow = len(col) if nrow is None else nrow
+            base = np.asarray(col[0]).dtype if col else np.dtype("i4")
+            letter = _NP_TO_TFORM[base.str[1:]]
+            desc = np.empty((nrow, 2), ">i4")
+            for r, a in enumerate(col):
+                a = np.ascontiguousarray(np.asarray(a),
+                                         dtype=base.newbyteorder(">"))
+                desc[r] = (len(a), len(heap))
+                heap += a.tobytes()
+            specs.append((name, f"P{letter}()"))
+            cells.append(desc.view(np.uint8).reshape(nrow, 8))
+        else:
+            a = np.asarray(col)
+            nrow = a.shape[0] if nrow is None else nrow
+            if a.dtype.kind == "U" or a.dtype.kind == "S":
+                w = int(str(a.dtype)[2:]) if a.dtype.kind == "S" \
+                    else max(len(s) for s in a)
+                b = np.array([s.encode("ascii").ljust(w)[:w]
+                              for s in a.astype(str)])
+                specs.append((name, f"{w}A"))
+                cells.append(np.frombuffer(b.tobytes(),
+                                           np.uint8).reshape(nrow, w))
+            else:
+                be = a.astype(a.dtype.newbyteorder(">"))
+                letter = _NP_TO_TFORM[a.dtype.str[1:]]
+                rep = 1 if a.ndim == 1 else a.shape[1]
+                specs.append((name, f"{rep}{letter}"))
+                cells.append(be.view(np.uint8).reshape(nrow, -1))
+    rowlen = sum(c.shape[1] for c in cells)
+    table = np.concatenate(cells, axis=1)
+    payload = table.tobytes() + bytes(heap)
+    cards = [_card("XTENSION", "BINTABLE", "binary table extension"),
+             _card("BITPIX", 8), _card("NAXIS", 2),
+             _card("NAXIS1", rowlen), _card("NAXIS2", nrow),
+             _card("PCOUNT", len(heap)), _card("GCOUNT", 1),
+             _card("TFIELDS", len(names))]
+    for i, (name, tform) in enumerate(specs, start=1):
+        cards.append(_card(f"TTYPE{i}", name))
+        cards.append(_card(f"TFORM{i}", tform))
+    if hdu.name:
+        cards.append(_card("EXTNAME", hdu.name))
+    for k, v in hdu.header.items():
+        cards.append(_card(k, v))
+    pad = (-len(payload)) % BLOCK
+    return _header_bytes(cards) + payload + b"\0" * pad
+
+
 def read_fits(path):
     """Return a list of (header_dict, ndarray-or-None); a binary table's
-    data is its raw bytes (read_bintable parses them)."""
+    data is its raw bytes (read_bintable parses them), a RICE-compressed
+    image's its decoded int32 array."""
     opener = gzip.open if str(path).endswith(".gz") else open
     with opener(path, "rb") as f:
         raw = f.read()
@@ -129,10 +344,11 @@ def read_fits(path):
             nbytes = cards["NAXIS1"] * cards["NAXIS2"] + pcount
             if cards.get("ZIMAGE") and cards.get("ZCMPTYPE",
                                                  "").startswith("RICE"):
-                raise NotImplementedError(
-                    f"{path}: a RICE-compressed HDU; the RICE codec comes "
-                    f"with the FITS writers (ROADMAP A6)")
-            data = raw[hdr_end:hdr_end + nbytes]  # opaque table bytes
+                from .rice import deserialize_rice_hdu
+                data = deserialize_rice_hdu(
+                    cards, raw[hdr_end:hdr_end + nbytes])
+            else:
+                data = raw[hdr_end:hdr_end + nbytes]  # opaque table bytes
         elif nelem:
             dt = np.dtype(_DTYPES[cards["BITPIX"]])
             nbytes = nelem * dt.itemsize + pcount

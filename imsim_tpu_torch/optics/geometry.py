@@ -14,24 +14,41 @@ z = z0 with sag measured along +z in its local frame.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Newton steps after the closed-form conic root (+2 on an asphere)
 NEWTON_POLISH = 1
 
 
+def sqrt(x):
+    """torch.sqrt, but numpy's correctly rounded square root for a
+    float64 CPU tensor: the host trace (WCS, OPD) then rounds as the JAX
+    package's numpy trace does.  PyTorch's vectorized float64 sqrt on the
+    CPU is not correctly rounded (1 ulp off on some inputs)."""
+    if x.dtype == torch.float64 and x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def rdiv(a: float, t):
+    """a / t as one division: PyTorch computes `float / tensor` as
+    reciprocal(t) x a, which rounds twice."""
+    return torch.full_like(t, a) / t
+
+
 def conic_sag(r2, c, kappa):
     """Sag of a conic: z = c r^2 / (1 + sqrt(1 - (1+kappa) c^2 r^2))."""
     arg = 1.0 - (1.0 + kappa) * c * c * r2
-    return c * r2 / (1.0 + torch.sqrt(torch.clamp(arg, min=1e-12)))
+    return c * r2 / (1.0 + sqrt(torch.clamp(arg, min=1e-12)))
 
 
 def conic_sag_slope(r2, c, kappa):
     """d(sag)/d(r^2)."""
     arg = torch.clamp(1.0 - (1.0 + kappa) * c * c * r2, min=1e-12)
-    s = torch.sqrt(arg)
+    s = sqrt(arg)
     # d/dr2 [c r2 / (1+s)] = c/(1+s) + c r2 * (c^2 (1+kappa)/2) / (s (1+s)^2)
-    return c / (1.0 + s) + c * r2 * (c * c * (1.0 + kappa) * 0.5) \
+    return rdiv(c, 1.0 + s) + c * r2 * (c * c * (1.0 + kappa) * 0.5) \
         / (s * (1.0 + s) ** 2)
 
 
@@ -49,7 +66,7 @@ def surface_normal(x, y, c, kappa, coefs):
         dzdr2 = dzdr2 + r2 * dacc
     dzdx = 2.0 * x * dzdr2
     dzdy = 2.0 * y * dzdr2
-    inv = 1.0 / torch.sqrt(1.0 + dzdx * dzdx + dzdy * dzdy)
+    inv = rdiv(1.0, sqrt(1.0 + dzdx * dzdx + dzdy * dzdy))
     return -dzdx * inv, -dzdy * inv, inv
 
 
@@ -90,7 +107,7 @@ def intersect(px, py, pz, vx, vy, vz, c, kappa, coefs):
     B = 2.0 * c * (x0 * vx + y0 * vy) - 2.0 * vz
     C = c * (x0 * x0 + y0 * y0)
     disc = torch.clamp(B * B - 4.0 * A * C, min=0.0)
-    sq = torch.sqrt(disc)
+    sq = sqrt(disc)
     sgn = torch.where(B >= 0.0, 1.0, -1.0)
     q = -0.5 * (B + sgn * sq)
     eps = 1e-30
@@ -127,7 +144,7 @@ def refract(vx, vy, vz, nx, ny, nz, n1_over_n2):
     nx, ny, nz, d = nx * sign, ny * sign, nz * sign, d * sign
     c1 = -d
     c2sq = 1.0 - eta * eta * (1.0 - c1 * c1)
-    c2 = torch.sqrt(torch.clamp(c2sq, min=1e-12))
+    c2 = sqrt(torch.clamp(c2sq, min=1e-12))
     k = eta * c1 - c2
     return eta * vx + k * nx, eta * vy + k * ny, eta * vz + k * nz
 
@@ -139,7 +156,7 @@ def silica_index(wavelength_nm):
           + 0.6961663 * w2 / (w2 - 0.0684043**2)
           + 0.4079426 * w2 / (w2 - 0.1162414**2)
           + 0.8974794 * w2 / (w2 - 9.896161**2))
-    return torch.sqrt(n2)
+    return sqrt(n2)
 
 
 def air_index_excess(wavelength_nm, pressure_kpa=69.33,

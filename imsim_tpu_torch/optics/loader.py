@@ -1,6 +1,7 @@
 """Telescope loading and perturbations (imsim_tpu/optics/loader.py
 counterpart): the band's best-focus offset, the ordered perturbations
-(shift / rotX / rotY / rotZ / Zernike sag per optic), the rotator angle,
+(shift / rotX / rotY / rotZ / Zernike sag per optic), the FEA / AOS
+terms (optics.fea), the rotator angle,
 focusZ defocus and per-detector focal-height offsets, as updates of the
 host `TelescopeDesign`.
 """
@@ -40,9 +41,9 @@ def load_telescope(telescope: str = "LSST", band: str = "r",
     perturbations : dict or list of dicts, ordered:
         {"M2": {"shift": [dx, dy, dz], "rotX": angle_rad,
                 "zernikes": {"coef": [...meters], "start_j": 4}}, ...}
-    fea : the finite-element / AOS degrees of freedom; not ported yet
-        (ROADMAP A5c, the optics' perturbation models), so a non-empty
-        value raises.
+    fea : the finite-element / AOS terms: raw per-mirror Zernike lists
+        ({"M1": [z4... meters]}, the legacy shorthand) or the terms of
+        optics.fea.fea_instructions (m1m3_gravity, aos_dof, ...).
     rotTelPos : camera rotator angle [rad], consumed by the WCS and the
         photon chain as a focal-plane rotation.
     focusZ : extra detector defocus [m].
@@ -71,9 +72,26 @@ def load_telescope(telescope: str = "LSST", band: str = "r",
                     else:
                         raise ValueError(f"unknown perturbation {kind}")
     if fea:
-        raise NotImplementedError(
-            "fea perturbations need optics/fea.py and aos.py, which the "
-            "port does not have yet (ROADMAP A5c)")
+        if all(k in OPTIC_SURFACES for k in fea):
+            # legacy shorthand: raw per-mirror Zernike lists
+            for optic, coef in fea.items():
+                for surf in OPTIC_SURFACES[optic]:
+                    tel = tel.with_zernikes(surf, np.asarray(coef, float),
+                                            start_j=4)
+        else:
+            from .fea import fea_instructions
+
+            for inst in fea_instructions(fea):
+                if inst[0] == "zern":
+                    _, optic, coef, start_j = inst
+                    for surf in OPTIC_SURFACES[optic]:
+                        tel = tel.with_zernikes(surf, coef, start_j)
+                elif inst[0] == "shift":
+                    for surf in OPTIC_SURFACES[inst[1]]:
+                        tel = tel.with_shift(surf, inst[2])
+                elif inst[0] == "rot":
+                    for surf in OPTIC_SURFACES[inst[1]]:
+                        tel = tel.with_rot(surf, inst[2], inst[3])
     return LoadedTelescope(tel=tel, band=band, rotTelPos=float(rotTelPos))
 
 

@@ -1,6 +1,9 @@
 """Sequential ray trace through the telescope on torch tensors
-(imsim_tpu/optics/trace.py counterpart; no Zernike textures, no optical
-path).  Vignetting is a flag; the caller zeroes the flux of flagged rays.
+(imsim_tpu/optics/trace.py counterpart).  Vignetting is a flag; the
+caller zeroes the flux of flagged rays.  The OPD maps (optics.opd) also
+accumulate the optical path and kick the rays off the mirrors' Zernike
+figure errors through slope textures (`build_zk_textures`); the photon
+chain and the WCS read neither.
 
 The same code runs the photon chain's plain twin on float32 tensors
 with the float32 surface matrix, and the host trace behind the WCS
@@ -10,6 +13,7 @@ with the float32 surface matrix, and the host trace behind the WCS
 trace agrees with the JAX package's to rounding."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import geometry as G
@@ -38,7 +42,7 @@ def _to_global(R, vtx, px, py, pz, vx, vy, vz):
 def rays_from_field(thx, thy, pupil_u, pupil_v, z_start: float = 10.0):
     """Entrance rays for field angle (thx, thy) [rad] through pupil
     point (pupil_u, pupil_v) [m] at z = z_start."""
-    vz = -1.0 / torch.sqrt(1.0 + thx * thx + thy * thy)
+    vz = -G.rdiv(1.0, G.sqrt(1.0 + thx * thx + thy * thy))
     vx = -thx * vz
     vy = -thy * vz
     px = pupil_u - thx * z_start
@@ -47,11 +51,17 @@ def rays_from_field(thx, thy, pupil_u, pupil_v, z_start: float = 10.0):
     return px, py, pz, vx, vy, vz
 
 
-def trace(tel: Telescope, px, py, pz, vx, vy, vz, wavelength_nm):
+def trace(tel: Telescope, px, py, pz, vx, vy, vz, wavelength_nm,
+          zk_textures=None, with_path: bool = False):
     """Trace rays through every surface to the detector.  Returns dict
-    with detector-local x, y [m], direction vx, vy, vz and vignette."""
+    with detector-local x, y [m], direction vx, vy, vz, vignette and
+    path (the optical path length [m] with `with_path`, else None).
+    zk_textures: {surface index: (G, G, 3) numpy (slope_x, slope_y, sag)
+    texture} from build_zk_textures, a thin-screen kick at each mirror
+    that has one."""
     n_silica = G.silica_index(wavelength_nm)
     vignette = torch.zeros_like(px, dtype=torch.bool)
+    path = torch.zeros_like(px) if with_path else None
     for i, kind in enumerate(tel.kinds):
         c_i, k_i, coefs_i, ap_lo, ap_hi, vtx, R = tel.surface(i)
         lx, ly, lz, lvx, lvy, lvz = _to_local(R, vtx, px, py, pz,
@@ -61,19 +71,64 @@ def trace(tel: Telescope, px, py, pz, vx, vy, vz, wavelength_nm):
             lx, ly, lz, lvx, lvy, lvz, c_i, k_i,
             coefs_i if steps > G.NEWTON_POLISH else ())
         vignette = vignette | (torch.abs(Fres) > 1e-5)
-        r = torch.sqrt(x * x + y * y)
+        if with_path:
+            # t reached this surface in silica iff it is a REFRACT_OUT
+            path = path + t * (n_silica if kind == REFRACT_OUT else 1.0)
+        r = G.sqrt(x * x + y * y)
         vignette = vignette | (r < ap_lo) | (r > ap_hi)
         if kind == DETECTOR:
             return dict(x=x, y=y, vx=lvx, vy=lvy, vz=lvz,
-                        vignette=vignette)
+                        vignette=vignette, path=path)
         nx, ny, nz = G.surface_normal(x, y, c_i, k_i, coefs_i)
         if kind == MIRROR:
             lvx, lvy, lvz = G.reflect(lvx, lvy, lvz, nx, ny, nz)
+            if zk_textures and i in zk_textures:
+                gx, gy, sag = _sample_slope(zk_textures[i], x / ap_hi,
+                                            y / ap_hi)
+                # the reflected ray tilts by twice the slope error
+                lvx = lvx - 2.0 * gx / ap_hi
+                lvy = lvy - 2.0 * gy / ap_hi
+                if with_path:
+                    # the figure error changes the double pass
+                    path = path - 2.0 * sag
         elif kind == REFRACT_IN:
             lvx, lvy, lvz = G.refract(lvx, lvy, lvz, nx, ny, nz,
-                                      1.0 / n_silica)
+                                      G.rdiv(1.0, n_silica))
         elif kind == REFRACT_OUT:
             lvx, lvy, lvz = G.refract(lvx, lvy, lvz, nx, ny, nz, n_silica)
         px, py, pz, vx, vy, vz = _to_global(R, vtx, x, y, z,
                                             lvx, lvy, lvz)
     raise RuntimeError("prescription has no DETECTOR surface")
+
+
+def _sample_slope(tex, u, v):
+    """Nearest sample of a (G, G, 3) numpy (slope_x, slope_y, sag)
+    texture over the unit disk [-1, 1]^2 at (u, v), as u's dtype (the
+    texture's float32 values widened, as numpy promotes them)."""
+    Gn = tex.shape[0]
+    iu = torch.clamp(((u + 1.0) * 0.5 * (Gn - 1)).to(torch.int32), 0, Gn - 1)
+    iv = torch.clamp(((v + 1.0) * 0.5 * (Gn - 1)).to(torch.int32), 0, Gn - 1)
+    flat = torch.as_tensor(tex.reshape(-1, 3), device=u.device)
+    g = flat[(iv * Gn + iu).long()].to(u.dtype)
+    return g[..., 0], g[..., 1], g[..., 2]
+
+
+def build_zk_textures(design, grid: int = 256) -> dict:
+    """Host: each surface's nonzero Zernike perturbation (design.zk) as a
+    (grid, grid, 3) float32 (slope_x, slope_y, sag) texture in normalized
+    pupil units; {surface index: texture}."""
+    from ..utils.zernike import zernike_eval, zernike_grad
+
+    zk = np.asarray(design.zk)
+    out = {}
+    u = np.linspace(-1, 1, grid)
+    U, V = np.meshgrid(u, u)
+    for i in range(zk.shape[0]):
+        if not np.any(zk[i]):
+            continue
+        gx, gy = zernike_grad(zk[i], U, V)
+        sag = zernike_eval(zk[i], U, V)
+        inside = (U * U + V * V) <= 1.0
+        out[i] = np.stack([gx * inside, gy * inside,
+                           sag * inside], -1).astype(np.float32)
+    return out

@@ -522,12 +522,16 @@ def test_fits_reader(tmp_path):
 
 
 def test_fits_reader_refuses_rice(tmp_path):
+    """The reader once refused a RICE HDU; with the codec ported it
+    decodes the JAX package's RICE file to the same int32 image."""
     path = str(tmp_path / "rice.fits")
     img = np.arange(64 * 64, dtype=np.int32).reshape(64, 64)
     JF.write_fits(path, [JF.HDU(None), JF.HDU(img, compress="rice")])
     assert np.array_equal(JF.read_fits(path)[1][1], img)
-    with pytest.raises(NotImplementedError, match="A6"):
-        TF.read_fits(path)
+    (th, _), (th1, td1) = TF.read_fits(path)
+    (jh, _), (jh1, _) = JF.read_fits(path)
+    assert th == jh and th1 == jh1
+    assert td1.dtype == np.int32 and np.array_equal(td1, img)
 
 
 # ---- sky spectra ------------------------------------------------------------

@@ -183,7 +183,7 @@ def test_prep_and_pieces_match_the_jax_runner(small, band):
     jctx = jax_context(cat, seds)
     jprep = JR.prepare_ccd(jctx, 94)
     jpieces = JR._sky_noise_pieces(jctx, jprep)
-    tctx = TR.build_visit_context(cat, sed_dirs=seds)
+    tctx = W.visit_context(cat, seds)
     tprep = TR.prepare_ccd(tctx, DET, device="cpu")
     tpieces = TR.sky_noise_pieces(tctx, tprep)
     assert tprep.host.n_objects == 300
@@ -211,7 +211,7 @@ def test_analytic_psf_prep_matches_the_jax_runner(small, over):
     cat, seds = small["catalog"]["r"], small["sed_dir"]
     jctx = jax_context(cat, seds, **over)
     jprep = JR.prepare_ccd(jctx, 94)
-    tctx = TR.build_visit_context(cat, sed_dirs=seds, overrides=over)
+    tctx = W.visit_context(cat, seds, over)
     tprep = TR.prepare_ccd(tctx, DET, device="cpu")
     assert not tprep.use_optics and tctx.atm_cfg is None
     assert (tprep.pcfg.psf_table is not None) == (
@@ -223,11 +223,12 @@ def test_analytic_psf_prep_matches_the_jax_runner(small, over):
 
 
 def test_unknown_settings_are_refused(small):
-    with pytest.raises(KeyError):
-        TR.build_visit_context(small["catalog"]["r"],
-                               overrides={"image.no_such_key": 1})
-    ctx = TR.build_visit_context(small["catalog"]["r"],
-                                 sed_dirs=small["sed_dir"])
+    """A config value of an unregistered type, and a window off the
+    frame's centre, are refused."""
+    with pytest.raises(KeyError, match="unknown config type"):
+        W.visit_context(small["catalog"]["r"], small["sed_dir"],
+                        {"eval_variables": {"fbad": {"type": "NoSuchType"}}})
+    ctx = W.visit_context(small["catalog"]["r"], small["sed_dir"])
     with pytest.raises(ValueError, match="window"):
         TR.prepare_ccd(ctx, DET, window=(511, 512), device="cpu")
 
@@ -235,8 +236,7 @@ def test_unknown_settings_are_refused(small):
 def test_fringe_on_a_device_follows_the_host_map(small):
     """sky_noise_pieces with a device uploads the host numpy map there,
     unchanged."""
-    tctx = TR.build_visit_context(small["catalog"]["y"],
-                                  sed_dirs=small["sed_dir"])
+    tctx = W.visit_context(small["catalog"]["y"], small["sed_dir"])
     tprep = TR.prepare_ccd(tctx, DET, window=WINDOW, device="cpu")
     host = TR.sky_noise_pieces(tctx, tprep)[4]
     dev = TR.sky_noise_pieces(tctx, tprep, device="cpu")[4]
@@ -293,14 +293,14 @@ def test_loaded_inputs_match_the_jax_runner(small, tmp_path, band, keys):
     cat, seds = small["catalog"][band], small["sed_dir"]
     jctx = jax_context(cat, seds, **jover)
     jprep = JR.prepare_ccd(jctx, 94)
-    tctx = TR.build_visit_context(cat, sed_dirs=seds, overrides=tover)
+    tctx = W.visit_context(cat, seds, tover)
     tprep = TR.prepare_ccd(tctx, DET, device="cpu")
     tpieces = TR.sky_noise_pieces(tctx, tprep)
     assert (tctx.sky_model.sky_sed is not None) == (band == "y")
     bad = leaf_gaps(jctx, jprep, JR._sky_noise_pieces(jctx, jprep), tctx,
                     tprep, tpieces)
     assert not bad, bad
-    base = TR.build_visit_context(cat, sed_dirs=seds)
+    base = W.visit_context(cat, seds)
     if band == "y":
         # the loaded inputs change the fringe map
         plain = TR.sky_noise_pieces(base, TR.prepare_ccd(base, DET,

@@ -70,7 +70,7 @@ def test_render_matches_the_jax_render(small):
     jprep = _jax_window(jctx, JR.prepare_ccd(jctx, 94), *WINDOW)
     jimg = np.asarray(JR.render_one_ccd(jctx, 94, write=False,
                                         prep=jprep)["eimage"])
-    tctx = TR.build_visit_context(cat, sed_dirs=seds, overrides={
+    tctx = W.visit_context(cat, seds, {
         "image.sky_level": 0, "input.atm_psf.screen_size": 102.4})
     res = TR.render_one_ccd(tctx, DET, "cpu", window=WINDOW)
     timg = res["eimage"].numpy()

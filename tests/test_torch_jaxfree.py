@@ -1,10 +1,11 @@
-"""The card has no JAX, and the port stands alone: every imsim_tpu_torch
-module must import, and a tiny render from the committed state must run,
-with `jax` and the JAX package `imsim_tpu` blocked by a meta-path hook;
-no source of the port imports `imsim_tpu`.  chip_smoke.py's CPU
-rehearsal runs there too (every phase at small size, the state built
-from the pointing and the instance-catalog CCD included), and the script
-itself refuses to run without CUDA or outside the checkout."""
+"""The card has no JAX, PyYAML, h5py or pandas, and the port stands
+alone: every imsim_tpu_torch module must import, and a tiny render from
+the committed state must run, with those and the JAX package `imsim_tpu`
+blocked by a meta-path hook; no source of the port imports them.
+chip_smoke.py's CPU rehearsal runs there too (every phase at small size,
+the state built from the pointing, the instance-catalog CCD and the
+visit from YAML through the CLI included), and the script itself refuses
+to run without CUDA or outside the checkout."""
 import ast
 import glob
 import json
@@ -15,26 +16,31 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# what the card's machine lacks, and the JAX package
+FORBIDDEN = ("jax", "jaxlib", "imsim_tpu", "yaml", "h5py", "pandas")
+
 BLOCK_JAX = r'''
 import importlib.abc
 import sys
 
+FORBIDDEN = %r
+
 
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "imsim_tpu"):
+        if name.split(".")[0] in FORBIDDEN:
             raise ImportError(f"{name} is blocked: the port must not use "
-                              f"JAX or the JAX package")
+                              f"JAX, the JAX package, PyYAML, h5py or "
+                              f"pandas")
         return None
 
 
 def blocked():
-    return [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "imsim_tpu")]
+    return [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 
 
 sys.meta_path.insert(0, _NoJax())
-'''
+''' % (FORBIDDEN,)
 
 REHEARSE = BLOCK_JAX + r'''
 import importlib
@@ -71,7 +77,7 @@ def _env():
 def test_port_imports_and_renders_without_jax():
     res = subprocess.run([sys.executable, "-c", REHEARSE], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
-                         timeout=300)
+                         timeout=480)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = res.stdout.splitlines()
     n_mod = int(next(ln for ln in lines if ln.startswith("MODULES")).split()[1])
@@ -121,6 +127,17 @@ def test_port_imports_and_renders_without_jax():
     assert "[instcat y] (q): sky-only frame" in res.stdout
     assert "fringe map mean" in res.stdout
     assert all("launches_by_path" in row for row in report["kernels"])
+    # phase 11: the visit from YAML through the CLI, both CCDs' files and
+    # gates, the FEA visit resumed, the FEA digest and the YAML flat
+    assert "[visit] (r)" in res.stdout
+    for det in ("R22_S11", "R10_S11"):
+        assert f"[visit] (s) {det}: eimage read back bit-equal" \
+            in res.stdout, det
+        for gate in "aef":
+            assert f"[visit] {det} ({gate})" in res.stdout, (det, gate)
+    for line in ("[visit] 2 CCDs through the CLI", "[visit] (t)",
+                 "[visit] (u)", "[visit] (v)", "[visit] RICE encode"):
+        assert line in res.stdout, line
 
 
 def _imported_modules(path):
@@ -136,15 +153,15 @@ def _imported_modules(path):
 
 
 def test_port_sources_never_import_the_jax_package():
-    """Static check of every port source and chip_smoke.py: no `import
-    imsim_tpu...` or `from imsim_tpu... import` anywhere (docstrings that
-    name a counterpart are fine)."""
+    """Static check of every port source and chip_smoke.py: no import of
+    the JAX package, JAX, PyYAML, h5py or pandas anywhere (docstrings
+    that name a counterpart are fine)."""
     paths = glob.glob(os.path.join(REPO, "imsim_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(paths) >= 30
     bad = {os.path.relpath(p, REPO): mods for p in paths
            if (mods := sorted({m for m in _imported_modules(p)
-                               if m in ("imsim_tpu", "jax", "jaxlib")}))}
+                               if m in FORBIDDEN}))}
     assert not bad, bad
 
 

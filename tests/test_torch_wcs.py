@@ -158,8 +158,11 @@ def test_prescription_and_perturbations_bit_equal(band):
     raychain.chain_params(t.matrix(), ctx, True, True, True)
     with pytest.raises(ValueError, match="float32"):
         raychain.chain_params(t.matrix(np.float64), ctx, True, True, True)
-    with pytest.raises(NotImplementedError, match="A5c"):
-        TL.load_telescope(fea={"M1": [1e-8]})
+    # the legacy per-mirror fea shorthand (tests/test_torch_fea.py holds
+    # the fea terms)
+    np.testing.assert_array_equal(
+        TL.load_telescope(band=band, fea={"M1": [1e-8]}).fiducial.zk,
+        JL.load_telescope(band=band, fea={"M1": [1e-8]}).fiducial.zk)
     with pytest.raises(ValueError):
         TL.load_telescope(perturbations={"M1": {"tilt": 1.0}})
 
