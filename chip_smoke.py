@@ -2,8 +2,8 @@
 end, and check it: the bench CCD through the optics chain and through
 the analytic PSF, the flats, the silicon modes and object families, a
 CCD built from its pointing, a CCD rendered from an instance catalog
-through the runner's per-CCD path, and a visit from a YAML config to
-files on disk through the CLI.
+through the runner's per-CCD path, a visit from a YAML config to files
+on disk through the CLI, and CCDs from skyCatalogs files.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,24 @@ ok line is never printed):
      the telescope and the OPD Zernikes against the JAX package's digest
      (data/fea_opd_digest.npz); examples/flat.yaml on the full frame,
      (v) the file round trip and the flat's statistics;
- 12. the kernel report (JSON, all eleven kernels, with bound_ms,
+ 12. the skyCatalogs CCD (files under chiprun_out/skycat_workload/,
+     removed after): the generated workload
+     (benchmarks/skycat_workload.py: a 120,000-row mapped-schema parquet
+     catalog over R22_S11, a native yaml with healpix parquet files,
+     synthetic '{vendor}' sensor models, RowData tables), gate (w): the
+     files' hashes, the mapped catalog's prep against the JAX package's
+     digest (data/skycat_r22_s11_digest.npz; gate (o)'s bars) and the
+     native ObjectTable bit for bit; the mapped catalog's full-frame CCD
+     through the CLI with image.sensor.sensor_model and one opsim_meta
+     value through RowData (host seconds by step, launches under
+     `launches_by_path["skycat_ccd"]`), (x) its BF kernel bit-equal to
+     the JAX package's and K3 on its taps, K1 and K2 at its shapes,
+     (a)-(f) [skycat], a warm render; the native catalog's CCD (host
+     seconds by step with its inline SEDs, `skycat_native`, (a)-(f),
+     K1-K3); (y) the example visit twice with input.atm_psf.save_file:
+     the second makes no screens, loads the first's bit-equal, and its
+     eimage is bit-equal (else held to the [visit] bars);
+ 13. the kernel report (JSON, all eleven kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last,
      the ok line.
 
@@ -1518,18 +1535,12 @@ def phase_visit(device, small: bool):
 
 def _visit_ccds(device, small, root, wl):
     """The two-CCD visit: timings, launches, (r), (s), (a)-(f)."""
-    import numpy as np
-    import torch
-
     from imsim_tpu_torch.catalog.opsim import read_instcat_header
     from imsim_tpu_torch.config import runner as TR
     from imsim_tpu_torch.config.interpreter import load_config
     from imsim_tpu_torch.electronics.camera import get_camera
-    from imsim_tpu_torch.image import photon_pooling as PP
-    from imsim_tpu_torch.image.cosmic_rays import cosmic_ray_hits
     from imsim_tpu_torch.io.fits import HDU
     from imsim_tpu_torch.io.rice import serialize_rice_hdu
-    from imsim_tpu_torch.ops import _build
 
     cam = get_camera()
     out = os.path.join(root, "ccds")
@@ -1556,14 +1567,7 @@ def _visit_ccds(device, small, root, wl):
 
     # the launches the plan predicts: K1 and K2 once a batch, K3 once a
     # sub-batch with the silicon
-    want = {k: 0 for k in _build.LAUNCHES}
-    if device.type == "cuda":
-        for r in results:
-            nb = PP.pooled_plan(r["host"], r["modes"], r["prep"].pcfg)[2]
-            want["scan_slot_prefix"] += nb
-            want["field_to_sensor"] += nb
-            if r["prep"].silicon is not None:
-                want["stencil_pair"] += nb * r["prep"].pcfg.nsub
+    want = _plan_launches(device, results)
     steps = 0.0
     for r in results:
         prep, sec = r["prep"], r["seconds"]
@@ -1592,32 +1596,10 @@ def _visit_ccds(device, small, root, wl):
     rate = float(cfg["output"]["cosmic_ray_rate"])
     seed = int(read_instcat_header(wl["catalog"]["r"]).get("seed", 42))
     for r in results:
-        det, prep = r["det_name"], r["prep"]
-        if det == "R22_S11":
+        if r["det_name"] == "R22_S11":
             _visit_gate_r(small, wl, r)
         _visit_gate_s(out, r)
-        host, pcfg = prep.host, prep.pcfg
-        spikes = prep.spikes
-        kern = spikes["kernel"]
-        frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
-        hits, _ = cosmic_ray_hits((pcfg.ysize, pcfg.xsize), prep.exptime,
-                                  seed * 189 + prep.det_num, ccd_rate=rate)
-        n = host.n_objects
-        if prep.silicon is not None:
-            labs = host.scene.labs_icdf[:n].double().cpu().numpy()
-            conv = (1.0 - np.exp(-prep.silicon.thickness_um / labs)
-                    ).mean(axis=1)
-        else:
-            conv = np.ones(n)
-        w = np.where(r["modes"] != PP.FFT, host.flux[:n], 0.0)
-        landed_min = 0.8 * float((conv * w).sum() / w.sum())
-        eimage = torch.as_tensor(r["eimage"], device=device)
-        raw = torch.as_tensor(r["amps"], device=device)
-        _ccd_gates(device, "visit", det, host, pcfg, spikes, frac,
-                   r["image"], eimage, raw, r["modes"], r["tally"],
-                   r["pieces"], prep.readout, masked=hits,
-                   landed_min=landed_min, vign=prep.fft_vign)
-        del eimage, raw
+        _render_gates(device, "visit", r["det_name"], r, seed, rate)
     return launches
 
 
@@ -1786,13 +1768,372 @@ def _visit_flat(device, small, root):
     _check(exact and abs(st["mean"] / cpp - 1) <= 0.005
            and st["var_over_mean"] < 0.97, "the YAML flat is out of bounds")
 
+# ---- phase 12: the skyCatalogs CCD -----------------------------------------
+
+SKYCAT_DET = "R22_S11"
+# the rehearsal: 2,000 mapped rows over R22_S11's central 512 x 512 window
+# (+10 px), none above the FFT threshold (the star field spans the whole
+# frame: its plain synthesis takes tens of seconds on the CPU), a
+# 100-galaxy / 20-star native catalog there; one batch, small screens, no
+# silicon (the BF stencil's plain twin takes seconds a pass over the full
+# frame: the sensor model's silicon is built apart for its kernels), the
+# saved-screen visits without the readout
+SKYCAT_SMALL = dict(n_rows=2000, window=(512, 512), margin=10.0, n_bright=0,
+                    total_photons=3e5, n_gal_native=100, n_star_native=20,
+                    native_photons=1e5)
+SKYCAT_SMALL_OVER = {"image.nbatch": 1, "image.batch_size": 10_000_000,
+                     "image.sensor.type": "none",
+                     "input.atm_psf.screen_size": 102.4}
+
+
+def phase_skycat(device, small: bool):
+    """The skyCatalogs CCD: the generated workload
+    (benchmarks/skycat_workload.py, under chiprun_out/ and removed after),
+    gate (w) against the JAX package's digest, the mapped catalog's
+    full-frame CCD through the CLI with the '{vendor}' sensor model and
+    one opsim_meta value through RowData, (a)-(f) [skycat], K1-K3 held to
+    their twins at its shapes with the model kernel's taps (x); the
+    native catalog's CCD (a)-(f) [skycat native]; (y) the saved screens.
+    Returns the launches of the two CCDs."""
+    import shutil
+    import tempfile
+
+    from imsim_tpu_torch.benchmarks import skycat_workload as SW
+
+    t0 = time.perf_counter()
+    if small:
+        root = tempfile.mkdtemp(prefix="skycat_")
+    else:
+        root = os.path.join(HERE, "chiprun_out", "skycat_workload")
+        shutil.rmtree(root, ignore_errors=True)
+    try:
+        wl = SW.write_workload(os.path.join(root, "workload"),
+                               **(SKYCAT_SMALL if small else {}))
+        log(f"[skycat] workload written in {time.perf_counter() - t0:.1f} s:"
+            f" {SKYCAT_SMALL['n_rows'] if small else 120_000} mapped rows, "
+            f"{len(wl['sha256']) - 1} native files, sensor models "
+            f"{sorted(os.listdir(wl['sensor_model_dir']))}")
+        want = None
+        if not small:
+            import numpy as np
+
+            with np.load(SW.DIGEST) as z:
+                want = {k: z[k] for k in z.files}
+        mapped = _skycat_mapped(device, small, root, wl, want)
+        native = _skycat_native(device, small, wl, want)
+        _skycat_saved_screens(device, small, root)
+        log(f"[skycat] phase 12 took {time.perf_counter() - t0:.1f} s")
+        return mapped, native
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _skycat_kernels(device, tag, prep, small):
+    """K1, K2 and K3 against their twins at this path's shapes: batch 0
+    of the CCD's pooled plan, its optics over the band, its silicon's
+    taps (the frame; 512 x 512 in the rehearsal)."""
+    import torch
+
+    from imsim_tpu_torch.benchmarks._util import Timer
+
+    timer = Timer(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261019)
+    host, cfg = prep.host, prep.pcfg
+    bp = prep.bandpass
+    band_wl = tuple(float(v) for v in bp.wave[bp.throughput > 0][[0, -1]])
+    k1, field, _, n_slots = _k1_row(timer, host, cfg, device, f"{tag} K1")
+    rows = [k1, _k2_row(timer, gen, prep.tel32, prep.octx, prep.silicon,
+                        field, n_slots, device, band_wl, f"{tag} K2")]
+    del field
+    H, W = (512, 512) if small else (cfg.ysize, cfg.xsize)
+    rows.append(_k3_row(timer, gen, prep.silicon, H, W, device,
+                        tag=f"{tag} K3"))
+    for row in rows:
+        log_kernel(row, f" ({tag}: the catalog's batch, the CCD's silicon)")
+    return rows
+
+
+def _plan_launches(device, results):
+    """The launches the plan predicts: K1 and K2 once a batch on the
+    optics path, K3 once a sub-batch with the silicon."""
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.ops import _build
+
+    want = {k: 0 for k in _build.LAUNCHES}
+    if device.type == "cuda":
+        for r in results:
+            prep = r["prep"]
+            nb = PP.pooled_plan(r["host"], r["modes"], prep.pcfg)[2]
+            if prep.use_optics:
+                want["scan_slot_prefix"] += nb
+                want["field_to_sensor"] += nb
+            if prep.silicon is not None:
+                want["stencil_pair"] += nb * prep.pcfg.nsub
+    return want
+
+
+def _render_gates(device, tag, label, r, seed, rate):
+    """(a)-(f) on one CCD's render result (phase 10's bars)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.image import photon_pooling as PP
+    from imsim_tpu_torch.image.cosmic_rays import cosmic_ray_hits
+
+    prep = r["prep"]
+    host, pcfg = prep.host, prep.pcfg
+    kern = prep.spikes["kernel"]
+    frac = 1.0 - float(kern[kern.shape[0] // 2, kern.shape[1] // 2])
+    hits, _ = cosmic_ray_hits((pcfg.ysize, pcfg.xsize), prep.exptime,
+                              seed * 189 + prep.det_num, ccd_rate=rate)
+    n = host.n_objects
+    if prep.silicon is not None:
+        labs = host.scene.labs_icdf[:n].double().cpu().numpy()
+        conv = (1.0 - np.exp(-prep.silicon.thickness_um / labs)).mean(axis=1)
+    else:
+        conv = np.ones(n)
+    w = np.where(r["modes"] != PP.FFT, host.flux[:n], 0.0)
+    landed_min = 0.8 * float((conv * w).sum() / w.sum())
+    _ccd_gates(device, tag, label, host, pcfg, prep.spikes, frac,
+               r["image"], torch.as_tensor(r["eimage"], device=device),
+               torch.as_tensor(r["amps"], device=device), r["modes"],
+               r["tally"], r["pieces"], prep.readout, masked=hits,
+               landed_min=landed_min, vign=prep.fft_vign)
+
+
+def _skycat_mapped(device, small, root, wl, want):
+    """The mapped catalog's CCD through the CLI: host seconds by step, the
+    launches, (w), (x), (a)-(f) [skycat], K1-K3 at its shapes, a warm
+    render."""
+    import dataclasses
+
+    import numpy as np
+
+    from imsim_tpu_torch.benchmarks import instcat_workload as IW
+    from imsim_tpu_torch.benchmarks import skycat_workload as SW
+    from imsim_tpu_torch.config import runner as TR
+    from imsim_tpu_torch.config.interpreter import load_config
+
+    out = os.path.join(root, "ccd")
+    meta = dict(SW.OPSIM_META, rawSeeing={
+        "type": "RowData", "file_name": wl["tables"]["csv"],
+        "key_column": "observationId", "key_value": 181000,
+        "field": "seeing"})
+    over = {"input.sky_catalog.file_name": wl["catalog"],
+            "input.sky_catalog.sed_dir": wl["sed_dir"],
+            "opsim_meta": meta,
+            "image.sensor.sensor_model": SW.SENSOR_MODEL_NAME,
+            "image.sensor.sensor_model_dir": wl["sensor_model_dir"],
+            "output.dir": out, "output.det_num": [94],
+            "output.file_name": "eimage_{det_name}.fits",
+            "output.readout.file_name": "amp_{det_name}.fits"}
+    if small:
+        over.update(SKYCAT_SMALL_OVER)
+    user = _user_yaml(os.path.join(root, "skycat.yaml"), over,
+                      template="imsim-config-skycat")
+    cfg = load_config(user)
+    TR.reset_host_timers()
+    results, wall, launches = _cli(device, [user])
+    (r,) = results
+    prep = r["prep"]
+    _check(prep.ccd.vendor == "E2V" and float(
+        prep.pcfg.fwhm) > 0, "the skycat CCD is not R22_S11's")
+    log(f"[skycat] {SKYCAT_DET} {prep.pcfg.ysize} x {prep.pcfg.xsize} "
+        f"through the CLI: wall {wall:.2f} s; host prep "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prep.seconds.items())
+        + f" s (sum {sum(prep.seconds.values()):.3f}); render "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r["seconds"].items()
+                    if k not in prep.seconds)
+        + f" s; {prep.host.n_objects} objects (the galaxies' components), "
+        f"modes FFT/PHOT/FAINT {np.bincount(r['modes'], minlength=3)}")
+    expect = _plan_launches(device, results)
+    log(f"[skycat] launches {launches} (expected {expect})")
+    _check(launches == expect, f"skycat launches {launches} != {expect}")
+
+    # (w): the prep against the JAX package's digest; the files' hashes
+    # (x): the sensor model's kernel against the JAX package's
+    vendor = prep.ccd.vendor.lower()
+    kprep = prep
+    if small:
+        kprep = dataclasses.replace(prep, silicon=TR._silicon(
+            TR.build_visit_context(load_config(
+                user, ["image.sensor.type=Silicon"])), prep.ccd, SKYCAT_DET))
+    kern = kprep.silicon.bf_kernel
+    if want is not None:
+        import json as _json
+
+        sha_ok = wl["sha256"] == _json.loads(str(want["sha256"]))
+        ctx = SW.visit_context(wl["catalog"], wl["sed_dir"])
+        got = IW.prep_digest(ctx, prep, r["pieces"], r["modes"], "r")
+        bad, gaps = IW.digest_mismatches(got, want, "r")
+        log(f"[skycat] (w): the mapped catalog's prep against the JAX "
+            f"package's digest: files' sha256 "
+            f"{'equal' if sha_ok else 'DIFFER'}; {len(bad)} leaves past "
+            f"their bars (kept, ids, realized sum, modes exact; nominal "
+            f"flux and wavelength rows bit-equal; field angles <= 1 "
+            f"float32 ulp; sky level and gradient <= 1e-12 relative); gaps "
+            + json.dumps({k: float(v) for k, v in gaps.items()})
+            + "".join(f"\n[skycat]   {k}: {v}" for k, v in bad.items()))
+        _check(sha_ok and not bad, "the skycat prep differs from the digest")
+        k_ok = all(np.array_equal(
+            want[f"bf_kernel.{v}"], TR._kernel_cached(os.path.join(
+                wl["sensor_model_dir"], SW.SENSOR_MODEL_NAME.format(
+                    vendor=v) + ".dat"), 4, 1.0)) for v in SW.SENSOR_MODELS)
+        k_ok = k_ok and np.array_equal(kern, want[f"bf_kernel.{vendor}"])
+    else:
+        log("[skycat] (w): the rehearsal's workload has no JAX digest; the "
+            "full-size run holds the prep to it")
+        k_ok = True
+    k3 = _skycat_kernels(device, "skycat", kprep, small)[2]
+    verdict = ("no digest (rehearsal)" if want is None else
+               "bit-equal to the JAX package" if k_ok else
+               "DIFFERS from the JAX package")
+    log(f"[skycat] (x): the silicon's BF kernel from "
+        f"{SW.SENSOR_MODEL_NAME.format(vendor=vendor)}.dat (K[4,4] "
+        f"{float(kern[4, 4]):.4g}): {verdict}; K3 on its taps within "
+        f"{k3['max_abs_err']:.3g} of its twin")
+    _check(k_ok, "the sensor model's kernel differs from the JAX package's")
+    rate = float(cfg["output"]["cosmic_ray_rate"])
+    seed = int(cfg["opsim_meta"]["observationId"])
+    _render_gates(device, "skycat", "cold", r, seed, rate)
+    if not small:
+        # the warm render of the same prep, its screens made beforehand
+        import torch
+
+        ctx = TR.build_visit_context(cfg)
+        ctx.screens(device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = TR.render_one_ccd(ctx, SKYCAT_DET, device, prep=prep)
+        torch.cuda.synchronize()
+        log("[skycat] warm: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in res["seconds"].items())
+            + f"; whole CCD {time.perf_counter() - t:.3f} s")
+        del res
+    return launches
+
+
+def _skycat_native(device, small, wl, want):
+    """The native catalog's CCD through the runner (the vendor's kernel):
+    the whole table against the digest (w), host seconds by step, the
+    launches, (a)-(f) [skycat native], K1-K3 at its shapes."""
+    import numpy as np
+
+    from imsim_tpu_torch.benchmarks import skycat_workload as SW
+    from imsim_tpu_torch.catalog.skycat import SkyCatalogInterface
+    from imsim_tpu_torch.config import runner as TR
+    from imsim_tpu_torch.ops import _build
+
+    if want is not None:
+        tab = SkyCatalogInterface(wl["native"]).to_object_table()
+        got = SW.table_digest(tab)
+        bad = SW.table_mismatches(got, {k[7:]: v for k, v in want.items()
+                                        if k.startswith("native.")})
+        log(f"[skycat native] (w): the native catalog's ObjectTable "
+            f"({len(tab)} rows) against the JAX package's digest: "
+            f"{len(bad)} columns differ {bad}")
+        _check(not bad, "the native table differs from the digest")
+        del tab
+    ctx = SW.visit_context(wl["native"], wl["sed_dir"],
+                           SKYCAT_SMALL_OVER if small else None)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    prep = TR.prepare_ccd(ctx, SKYCAT_DET, device=device)
+    res = TR.render_one_ccd(ctx, SKYCAT_DET, device, prep=prep)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    log(f"[skycat native] {SKYCAT_DET}: {wall:.2f} s; host prep "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prep.seconds.items())
+        + f" s (sum {sum(prep.seconds.values()):.3f}); render "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f" s; {prep.host.n_objects} objects, "
+        f"{sum(s is not None for s in prep.table.sed_obj)} of them with "
+        f"inline SEDs; modes {np.bincount(res['modes'], minlength=3)}")
+    expect = _plan_launches(device, [dict(res, prep=prep)])
+    log(f"[skycat native] launches {launches} (expected {expect})")
+    _check(launches == expect, f"native launches {launches} != {expect}")
+    _check(prep.seconds.get("tophat seds", 0.0) > 0,
+           "no inline SEDs timed")
+    res = dict(res, prep=prep)
+    rate = float(ctx.cfg["output"]["cosmic_ray_rate"])
+    _render_gates(device, "skycat native", "cold", res, ctx.seed, rate)
+    del res
+    if not small:
+        # the rehearsal's native CCD has no silicon for K2's fused form
+        _skycat_kernels(device, "skycat native", prep, small)
+    return launches
+
+
+def _skycat_saved_screens(device, small, root):
+    """(y): the example visit twice with input.atm_psf.save_file: the
+    second builds no screens, loads the first's bit-equal, and renders
+    the same eimage (else it is held to the [visit] bars)."""
+    import numpy as np
+    import torch
+
+    from imsim_tpu_torch.config import runner as TR
+
+    made, loaded = [], []
+    real_make, real_load = TR.make_screens, TR.load_screens
+    TR.make_screens = lambda *a, **k: made.append(real_make(*a, **k)) \
+        or made[-1]
+    TR.load_screens = lambda *a, **k: loaded.append(real_load(*a, **k)) \
+        or loaded[-1]
+    try:
+        atm = os.path.join(root, "atm.npz")
+        over = {"input.instance_catalog.file_name": os.path.join(
+                    HERE, EXAMPLE_CATALOG),
+                "input.instance_catalog.sed_dir": os.path.join(
+                    HERE, EXAMPLE_SEDS),
+                "input.atm_psf.save_file": atm, "output.det_num": [94]}
+        if small:
+            over.update(VISIT_SMALL_OVER, **{"output.readout.enabled": False})
+        user = _user_yaml(os.path.join(root, "atm.yaml"), over)
+        runs = []
+        for k in range(2):
+            n0 = len(made)
+            res, wall, _ = _cli(device, [
+                user, f"output.dir={os.path.join(root, f'atm{k}')}"])
+            runs.append((res[0], wall, len(made) - n0))
+    finally:
+        TR.make_screens, TR.load_screens = real_make, real_load
+    (r1, w1, m1), (r2, w2, m2) = runs
+    same_scr = len(made) == 1 and len(loaded) == 1 and torch.equal(
+        made[0].grad.cpu(), loaded[0].grad.cpu()) and np.array_equal(
+        made[0].winds, loaded[0].winds) and made[0].weights == \
+        loaded[0].weights
+    same_img = np.asarray(r1["eimage"]).tobytes() == \
+        np.asarray(r2["eimage"]).tobytes()
+    log(f"[skycat] (y): the example visit with input.atm_psf.save_file: "
+        f"{w1:.2f} s making {m1} screen set(s) and saving "
+        f"{os.path.getsize(atm) / 2**20:.1f} MiB, then {w2:.2f} s making "
+        f"{m2} (bar 0) and loading {len(loaded)}: loaded screens "
+        f"{'bit-equal to the saved' if same_scr else 'DIFFER'}; eimage "
+        + ("bit-equal" if same_img else "not bit-equal (the render is not "
+           "deterministic here): held to the [visit] bars"))
+    _check(m1 == 1 and m2 == 0 and same_scr,
+           "the second visit made screens or loaded other ones")
+    if not same_img:
+        _render_gates(device, "visit", "saved screens", r2, 181000 % 2**31,
+                      0.2)
+
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-11 on `device`; returns the kernel report.  Each row's
+    """Phases 2-12 on `device`; returns the kernel report.  Each row's
     `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
     and `launches_by_path` the count on every path that drives it
     (`itl_ccd`: phase 9's CCD built from the pointing; `instcat_ccd`:
     phase 10's CCD from the instance catalog, its cold r render;
-    `visit_yaml`: phase 11's two-CCD visit through the CLI)."""
+    `visit_yaml`: phase 11's two-CCD visit through the CLI;
+    `skycat_ccd`, `skycat_native`: phase 12's CCDs from the mapped and
+    the native sky catalog)."""
     import torch
 
     _import_port()
@@ -1820,6 +2161,7 @@ def run(device, small: bool = False) -> dict:
     paths["itl_ccd"] = phase_pointing(device, small)["launches"]
     paths["instcat_ccd"] = phase_instcat(device, small)
     paths["visit_yaml"] = phase_visit(device, small)
+    paths["skycat_ccd"], paths["skycat_native"] = phase_skycat(device, small)
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if c[row["name"]]}

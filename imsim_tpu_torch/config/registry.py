@@ -10,6 +10,8 @@ routes each `input.<name>` section through INPUT_TYPES.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 INPUT_TYPES: dict = {}
@@ -150,9 +152,8 @@ def _tree_ring_func(node, view):
 
 @register_value("RowData")
 def _row_data(node, view):
-    raise NotImplementedError(
-        "RowData reads skyCatalogs rows, which need a reader without "
-        "pandas (ROADMAP A5b')")
+    from ..catalog.table_row import row_data
+    return row_data(node, view)
 
 
 @register_value("List")
@@ -251,7 +252,7 @@ def _output_ccd(node, view):
 @register_input("opsim_data")
 def _input_opsim(node, view):
     """Visit metadata: an opsim sqlite row, a phoSim catalog header, or
-    the config's opsim_meta dict."""
+    the config's opsim_meta dict (its typed values resolved)."""
     from ..catalog import opsim as opsim_mod
     from ..meta_data import resolve_data_path as _data
 
@@ -267,7 +268,13 @@ def _input_opsim(node, view):
         if cat.get("file_name"):
             ods = opsim_mod.read_instcat_header(_data(cat["file_name"]))
         else:
-            ods = opsim_mod.from_dict(dict(view.cfg.get("opsim_meta", {})))
+            # a typed value there (a RowData row of a visit table) is read
+            # before the visit's metadata exists; the JAX package passes
+            # such a node through unread
+            meta = {k: view.resolve(v) if isinstance(v, dict) and "type" in v
+                    else v for k, v in
+                    (view.cfg.get("opsim_meta", {}) or {}).items()}
+            ods = opsim_mod.from_dict(meta)
     # config-level metadata: snap, IMGTYPE and REASON
     for k in ("snap", "image_type", "reason"):
         if node.get(k) is not None:
@@ -315,10 +322,6 @@ def _input_atm_psf(node, view):
     psf_cfg = view.cfg.get("psf", {}) or {}
     if psf_cfg.get("type", "AtmosphericPSF") != "AtmosphericPSF":
         return None, None
-    if node.get("save_file"):
-        raise NotImplementedError(
-            "input.atm_psf.save_file (reusing saved screens) is not ported "
-            "yet (ROADMAP A, atm_psf.save_file)")
     from ..psf.atmosphere import AtmConfig, screen_spec
 
     atm_cfg = AtmConfig(
@@ -330,8 +333,14 @@ def _input_atm_psf(node, view):
         altitude_deg=float(ods.get("altitude", 90.0)),
         exptime=float(ods.get("exptime", 30.0)),
         t0=float(node.get("t0", 0.0)))
-    # the atmosphere's own seed: the visit's + 271828
-    return atm_cfg, screen_spec(seed + ATM_SEED_OFFSET, atm_cfg)
+    # the atmosphere's own seed: the visit's + 271828; save_file: the
+    # screens are reused from that file when it exists, else saved there
+    # (config.runner.VisitContext.screens)
+    spec = screen_spec(seed + ATM_SEED_OFFSET, atm_cfg)
+    save_file = _data(node.get("save_file"))
+    if save_file:
+        spec = dataclasses.replace(spec, save_file=str(save_file))
+    return atm_cfg, spec
 
 
 @register_input("sky_model")

@@ -39,6 +39,7 @@ from .. import convert
 from ..catalog import opsim as opsim_mod
 from ..catalog.bandpass import rubin_bandpass, rubin_bandpass_from_files
 from ..catalog.instcat import read_instcat
+from ..catalog.skycat import SkyCatalogInterface
 from ..electronics.camera import PIXEL_SIZE_MM, get_camera
 from ..electronics.readout import CcdReadout
 from ..image import scene as scene_mod
@@ -52,11 +53,14 @@ from ..image.sky_sed import fringing_amplitude, load_sky_sed
 from ..image.vignetting import Vignetting
 from ..io.checkpoint import Checkpointer
 from ..io.fits import HDU, read_fits, write_fits
+from ..meta_data import data_dir
 from ..meta_data import resolve_data_path as _data
 from ..optics.astrometry import RUBIN_LAT
 from ..optics.wcs_factory import make_wcs_factory
 from ..photons.diffraction import field_rotation_sincos
-from ..psf.atmosphere import AtmConfig, make_screens
+from ..psf.atmosphere import AtmConfig, AtmScreens, load_screens, \
+    make_screens, save_screens
+from ..sensor.sensor_model import _kernel_cached, resolve_sensor_model
 from ..sensor.silicon import SiliconParams
 from ..sensor.treerings import TreeRings
 from ..utils.grid import coarse_shape
@@ -140,14 +144,23 @@ class VisitContext:
     seconds: dict
     _screens: dict = dataclasses.field(default_factory=dict)
 
-    def screens(self, device):
-        """The atmosphere's screens on `device` (made once per device
-        from the visit's seed + 271828)."""
+    def screens(self, device) -> AtmScreens:
+        """The atmosphere's screens on `device`, once per device: loaded
+        from input.atm_psf.save_file where that file exists, else made
+        from the visit's seed + 271828 (and saved there when it is set;
+        numpy adds '.npz' to a name without it, which is then never
+        found, as in the JAX package)."""
         key = str(torch.device(device))
         if key not in self._screens:
-            self._screens[key] = make_screens(
-                self.screen_spec, device, gen=stream(
+            spec = self.screen_spec
+            if spec.save_file and os.path.isfile(spec.save_file):
+                scr = load_screens(spec.save_file, t0=spec.t0, device=device)
+            else:
+                scr = make_screens(spec, device, gen=stream(
                     self.seed + ATM_SEED_OFFSET, "screens", device=device))
+                if spec.save_file:
+                    save_screens(spec.save_file, scr)
+            self._screens[key] = scr
         return self._screens[key]
 
 
@@ -371,6 +384,45 @@ def _readout_for(ctx, ccd, device) -> CcdReadout | None:
         pcti=float(r_cfg.get("pcti", 1e-6)), **opt)
 
 
+def _sky_catalog_table(sky_cfg, wcs, nx, ny, seconds, clock):
+    """input.sky_catalog: the CCD's objects from skyCatalogs files (a
+    flat parquet / CSV catalog or the native yaml) culled to its box
+    widened by edge_pix, less those without an SED file under
+    skip_missing_sed; the SED directories (sed_dir, else
+    $SIMS_SED_LIBRARY_DIR, plus the native catalog's sed_file_root
+    ones); build_scene's pad_to (approx_nobjects rounded up to a power
+    of two, when it holds every object) and max_flux.  The native
+    catalog's inline tophat SEDs are timed apart from the cull."""
+    skycat = SkyCatalogInterface(
+        _data(sky_cfg["file_name"]), columns=sky_cfg.get("columns"),
+        obj_types=tuple(sky_cfg["obj_types"])
+        if sky_cfg.get("obj_types") else None,
+        apply_dc2_dilation=bool(sky_cfg.get("apply_dc2_dilation", False)),
+        skycatalog_root=sky_cfg.get("skycatalog_root"))
+    table = skycat.to_object_table(
+        wcs=wcs, xsize=nx, ysize=ny,
+        edge_pix=float(sky_cfg.get("edge_pix", 100)))
+    sed_dirs = sky_cfg.get("sed_dir") or \
+        os.environ.get("SIMS_SED_LIBRARY_DIR", ".")
+    if isinstance(sed_dirs, str):
+        sed_dirs = [sed_dirs]
+    if skycat.native is not None:
+        sed_dirs = list(sed_dirs) + skycat.native.sed_dirs_hint()
+    if sky_cfg.get("skip_missing_sed"):
+        table = scene_mod.filter_missing_seds(table, sed_dirs)
+    clock("cull")
+    if skycat.native is not None:
+        t_sed = skycat.native.seconds["tophat seds"]
+        seconds["cull"] -= t_sed
+        seconds["tophat seds"] = seconds.get("tophat seds", 0.0) + t_sed
+    approx = sky_cfg.get("approx_nobjects")
+    pad_to = None
+    if approx and int(approx) >= len(table):
+        pad_to = max(int(2 ** np.ceil(np.log2(max(int(approx), 1)))), 16)
+    return table, sed_dirs, dict(pad_to=pad_to,
+                                 max_flux=sky_cfg.get("max_flux"))
+
+
 def _silicon(ctx, ccd, det_name):
     """image.sensor: the Silicon sensor with the CCD's tree rings and,
     unless isotropic_kernel, the vendor's measured BF kernel at 0.4 x
@@ -379,11 +431,22 @@ def _silicon(ctx, ccd, det_name):
     sensor_cfg = img_cfg.get("sensor", {}) or {}
     if sensor_cfg.get("type", "Silicon") != "Silicon":
         return None
-    if sensor_cfg.get("sensor_model"):
-        raise NotImplementedError(
-            "image.sensor.sensor_model (a Poisson-solver vertex file's BF "
-            "kernel) is not ported yet (ROADMAP A, sensor_model.py)")
     strength = float(sensor_cfg.get("strength", 1.0))
+    model_name = sensor_cfg.get("sensor_model")
+    if model_name:
+        # a Poisson solver's vertex file (a path or a model name; the
+        # '{vendor}' placeholder picks the CCD's): its own kernel at
+        # `strength`, looked up in sensor_model_dir, then the data dir's
+        # sensor_models/ and the data dir itself
+        dirs = [sensor_cfg.get("sensor_model_dir", ".")]
+        if data_dir():
+            dirs += [os.path.join(data_dir(), "sensor_models"), data_dir()]
+        path = resolve_sensor_model(
+            str(model_name).format(vendor=ccd.vendor.lower()), dirs)
+        return dataclasses.replace(SiliconParams.make(
+            treering_model=ctx.tree_rings.get(det_name),
+            bf_strength=0.4 * strength), bf_kernel=_kernel_cached(
+                path, 4, strength))
     if sensor_cfg.get("isotropic_kernel", False):
         return SiliconParams.make(treering_model=ctx.tree_rings.get(
             det_name), bf_strength=0.4 * strength)
@@ -437,11 +500,11 @@ def prepare_ccd(ctx: VisitContext, det, *, window=None, device="cuda",
     cat_cfg = cfg.get("input", {}).get("instance_catalog", {}) or {}
     sky_cfg = cfg.get("input", {}).get("sky_catalog", {}) or {}
     host = table = None
+    scene_kw = {}
     if sky_cfg.get("file_name"):
-        raise NotImplementedError(
-            "input.sky_catalog (skyCatalogs) needs a reader without pandas "
-            "(ROADMAP A5b')")
-    if cat_cfg.get("file_name"):
+        table, sed_dirs, scene_kw = _sky_catalog_table(sky_cfg, wcs, nx, ny,
+                                                       seconds, clock)
+    elif cat_cfg.get("file_name"):
         table = read_instcat(
             _data(cat_cfg["file_name"]), wcs=wcs, xsize=nx, ysize=ny,
             edge_pix=float(cat_cfg.get("edge_pix", 100)),
@@ -458,10 +521,11 @@ def prepare_ccd(ctx: VisitContext, det, *, window=None, device="cuda",
             os.environ.get("SIMS_SED_LIBRARY_DIR", ".")
         if isinstance(sed_dirs, str):
             sed_dirs = [sed_dirs]
+    if table is not None:
         host = scene_mod.build_scene(
             table, bandpass, sed_dirs, exptime=exptime,
             rng=np.random.default_rng(ctx.seed + det_num),
-            device=device if upload else "cpu")
+            device=device if upload else "cpu", **scene_kw)
         if use_optics:
             # the optics chain takes field angles in COL_X / COL_Y; pix_x
             # and pix_y keep the pixels

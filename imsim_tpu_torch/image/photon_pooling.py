@@ -6,7 +6,9 @@ analytic Kolmogorov x Gaussian PSF in pixels (render.shoot; without
 them), then the silicon accumulate with the K3 stencil or the ideal
 binner.
 
-Checkpointing is a ROADMAP queue A item.  Batch sizes, slot layouts, the
+With a checkpointer (io/checkpoint), the image and the next batch are
+saved after the FFT pass and every cfg.nbatch_per_checkpoint batches,
+and a render resumes from them.  Batch sizes, slot layouts, the
 photon->object assignment and the FFT branch's stamp sizes and buckets
 are identical to the JAX package's.
 """

@@ -6,6 +6,7 @@ batcher."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -249,10 +250,27 @@ def _sed_rows(path, z, int_av, int_rv, mw_av, mw_rv, bp: Bandpass,
     return rates, icdfs
 
 
+def filter_missing_seds(table: ic.ObjectTable, sed_dirs) -> ic.ObjectTable:
+    """The rows whose SED file is in one of sed_dirs, or that carry an
+    inline SED (the sky catalog's skip_missing_sed: a partial SED library
+    renders the objects it can)."""
+    n = len(table)
+    has_inline = len(getattr(table, "sed_obj", ())) == n
+    keep = np.ones(n, bool)
+    for i in range(n):
+        if has_inline and table.sed_obj[i] is not None:
+            continue
+        name = str(table.sed_name[i])
+        if not any(os.path.isfile(os.path.join(d, name)) for d in sed_dirs):
+            keep[i] = False
+    return table.select(keep)
+
+
 def build_scene(table: ic.ObjectTable, bp: Bandpass, sed_dirs,
                 exptime: float = 30.0, pupil_area: float = ic.RUBIN_AREA,
                 rng: np.random.Generator | None = None,
-                device="cuda") -> SceneHost:
+                device="cuda", pad_to: int | None = None,
+                max_flux: float | None = None) -> SceneHost:
     """The scene of a culled ObjectTable on `device`, with its photon
     budget: each object's SED through the bandpass gives its nominal flux
     and wavelength inverse CDF (one per (sed, z, dust) key, rounded as
@@ -261,8 +279,9 @@ def build_scene(table: ic.ObjectTable, bp: Bandpass, sed_dirs,
     the flux, the realized flux is Poisson(nominal) from `rng`, then the
     FITS objects' point clouds draw from the same `rng`.  Columns are
     padded to a power of two (at least 16 rows; padded wavelength rows
-    622 nm).  Host numpy; the same numbers as the JAX package's loop over
-    objects."""
+    622 nm; pad_to: that many rows instead).  max_flux: objects whose
+    nominal flux is above it get none (the sky catalog skips them).  Host
+    numpy; the same numbers as the JAX package's loop over objects."""
     rng = rng or np.random.default_rng(0)
     n = len(table)
     wl = np.empty((n, WL_CDF_K), np.float32)
@@ -313,9 +332,11 @@ def build_scene(table: ic.ObjectTable, bp: Bandpass, sed_dirs,
     wl[kept] = icdf[key_of[kept]]
     # lens magnification scales the flux by mu
     nominal = nominal * np.abs(table.mu)
+    if max_flux is not None:
+        nominal = np.where(nominal > float(max_flux), 0.0, nominal)
     realized = rng.poisson(np.clip(nominal, 0, None)).astype(np.float64)
 
-    n_pad = max(int(2 ** np.ceil(np.log2(max(n, 1)))), 16)
+    n_pad = pad_to or max(int(2 ** np.ceil(np.log2(max(n, 1)))), 16)
 
     def pad(a, fill=0.0):
         out = np.full(n_pad, fill, np.float32)

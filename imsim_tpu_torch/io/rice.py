@@ -2,35 +2,29 @@
 binding of the host C++ codec `io/native/rice.cc` and the FITS tiled-
 image HDU (de)serialization, one tile per image row.
 
-The codec is built with `g++ -O3 -shared -fPIC` at first use into
-`imsim_tpu_torch/_build/`, named by a hash of its source, so an edited
-codec never loads a stale library.  Without g++ the build raises: there
-is no numpy fallback.  The encoder's bytes are the JAX package's codec's
-bytes for the same int32 rows.
+The codec is built with g++ at first use (io/gxx.py: into
+`imsim_tpu_torch/_build/`, named by a hash of its source); without g++
+the build raises: there is no numpy fallback.  The encoder's bytes are
+the JAX package's codec's bytes for the same int32 rows.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "io", "native", "rice.cc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from . import gxx
+
+SRC = os.path.join(gxx.NATIVE_DIR, "rice.cc")
 
 _lib = None
 _lock = threading.Lock()
 
 
 def library_path() -> str:
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"_rice_{digest}.so")
+    return gxx.library_path(SRC, "_rice_")
 
 
 def _load():
@@ -39,18 +33,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not os.path.isfile(so):
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: the RICE codec cannot be "
-                                   "built")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run([gxx, "-O3", "-shared", "-fPIC", SRC, "-o", tmp],
-                           check=True)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = gxx.load(SRC, "_rice_")
         lib.rice_encode_i32.restype = ctypes.c_long
         lib.rice_encode_i32.argtypes = [
             ctypes.POINTER(ctypes.c_int32), ctypes.c_long,

@@ -118,6 +118,9 @@ class ScreenSpec:
     size: float           # m
     scale: float          # m per texel
     t0: float = 0.0
+    # input.atm_psf.save_file: the screens are loaded from this file when
+    # it exists, else made and saved there
+    save_file: str | None = None
 
     @property
     def n(self) -> int:
@@ -201,6 +204,31 @@ def make_screens(spec: ScreenSpec, device, gen=None, noise=None):
                       winds=np.asarray(spec.winds, np.float32),
                       scale=spec.scale, size=spec.size, t0=spec.t0,
                       weights=tuple(float(w) for w in spec.weights))
+
+
+def save_screens(path: str, screens: AtmScreens) -> None:
+    """Write the screens as the JAX package's save_screens does: a
+    compressed npz of grad (L, n, n, 2), winds, scale, size and, where
+    set, the layer weights (a multi-CCD run then builds them once)."""
+    kw = {}
+    if screens.weights is not None:
+        kw["weights"] = np.asarray(screens.weights)
+    np.savez_compressed(path, grad=screens.grad.detach().cpu().numpy(),
+                        winds=np.asarray(screens.winds),
+                        scale=screens.scale, size=screens.size, **kw)
+
+
+def load_screens(path: str, t0: float = 0.0, device="cuda") -> AtmScreens:
+    """Screens that save_screens (or the JAX package's) wrote, with their
+    gradients on `device`; t0: this exposure's start against the saved
+    screens' time origin."""
+    with np.load(path) as z:
+        grad = torch.as_tensor(z["grad"], device=device)
+        w = tuple(float(x) for x in z["weights"]) if "weights" in z \
+            else None
+        return AtmScreens(grad=grad, winds=np.asarray(z["winds"]),
+                          scale=float(z["scale"]), size=float(z["size"]),
+                          t0=t0, weights=w)
 
 
 def strong_layer_mask(weights, strong_cum: float = 0.8):

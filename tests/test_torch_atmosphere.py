@@ -94,3 +94,56 @@ def test_screens_from_generator_are_seeded():
     assert a.grad.shape == (2, 32, 32, 2)
     assert torch.equal(a.grad, b.grad) and not torch.equal(a.grad, c.grad)
     assert torch.isfinite(a.grad).all()
+
+
+@pytest.mark.parametrize("share", [1, 4])
+def test_screens_the_jax_package_saved_load_in_the_port(tmp_path, screens,
+                                                        share):
+    """An npz the JAX package's save_screens wrote loads in the port
+    (load_screens, on the caller's device, with the exposure's t0): its
+    arrays are the saved ones, and first_kick_angles on it stays within
+    1e-9 rad of the JAX package's on its own load."""
+    path = str(tmp_path / "atm.npz")
+    JA.save_screens(path, screens)
+    jl = JA.load_screens(path, t0=12.5)
+    tl = TA.load_screens(path, t0=12.5, device="cpu")
+    assert tl.grad.device.type == "cpu" and tl.t0 == 12.5
+    assert np.array_equal(tl.grad.numpy(), np.asarray(jl.grad))
+    assert np.array_equal(tl.winds, np.asarray(jl.winds))
+    assert (tl.scale, tl.size, tl.weights) == (jl.scale, jl.size, jl.weights)
+    rng = np.random.default_rng(8)
+    n = 4096
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    pu, pv = f32(rng.uniform(-4, 4, n)), f32(rng.uniform(-4, 4, n))
+    t = f32(rng.uniform(0, 30, n))
+    want = JA.first_kick_angles(*map(jnp.asarray, (pu, pv, t)), jl,
+                                share=share)
+    T = torch.as_tensor
+    got = TA.first_kick_angles(T(pu), T(pv), T(t), tl, share=share)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-9)
+
+
+def test_port_save_load_round_trip_is_bit_equal(tmp_path):
+    """The port's own screens through save_screens and load_screens: the
+    same arrays, scalars and weights; screens without weights too."""
+    spec = TA.ScreenSpec(weights=(0.6, 0.4), winds=np.array(
+        [[1.0, 2.0], [-3.0, 0.5]], np.float32), r0_layer=np.array([0.2, 0.4]),
+        L0=25.0, kcrit_rad=1.0, size=25.6, scale=0.8, t0=3.0)
+    from imsim_tpu_torch.utils.rng import stream
+
+    scr = TA.make_screens(spec, "cpu", gen=stream(3, "screens",
+                                                  device="cpu"))
+    for weights in (scr.weights, None):
+        s = TA.AtmScreens(grad=scr.grad, winds=scr.winds, scale=scr.scale,
+                          size=scr.size, t0=scr.t0, weights=weights)
+        path = str(tmp_path / f"s{weights is None}.npz")
+        TA.save_screens(path, s)
+        back = TA.load_screens(path, t0=3.0, device="cpu")
+        assert torch.equal(back.grad, s.grad) and back.grad.dtype == \
+            torch.float32
+        assert np.array_equal(back.winds, s.winds)
+        assert back.winds.dtype == s.winds.dtype
+        assert (back.scale, back.size, back.t0, back.weights) == \
+            (s.scale, s.size, s.t0, s.weights)

@@ -1,11 +1,12 @@
-"""The card has no JAX, PyYAML, h5py or pandas, and the port stands
-alone: every imsim_tpu_torch module must import, and a tiny render from
-the committed state must run, with those and the JAX package `imsim_tpu`
-blocked by a meta-path hook; no source of the port imports them.
+"""The card has no JAX, PyYAML, h5py, pandas or pyarrow, and the port
+stands alone: every imsim_tpu_torch module must import, and a tiny render
+from the committed state must run, with those and the JAX package
+`imsim_tpu` blocked by a meta-path hook; no source of the port imports
+them.
 chip_smoke.py's CPU rehearsal runs there too (every phase at small size,
-the state built from the pointing, the instance-catalog CCD and the
-visit from YAML through the CLI included), and the script itself refuses
-to run without CUDA or outside the checkout."""
+the state built from the pointing, the instance-catalog CCD, the visit
+from YAML through the CLI and the skyCatalogs CCDs included), and the
+script itself refuses to run without CUDA or outside the checkout."""
 import ast
 import glob
 import json
@@ -17,7 +18,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # what the card's machine lacks, and the JAX package
-FORBIDDEN = ("jax", "jaxlib", "imsim_tpu", "yaml", "h5py", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "imsim_tpu", "yaml", "h5py", "pandas",
+             "pyarrow", "fastparquet")
 
 BLOCK_JAX = r'''
 import importlib.abc
@@ -30,8 +32,8 @@ class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in FORBIDDEN:
             raise ImportError(f"{name} is blocked: the port must not use "
-                              f"JAX, the JAX package, PyYAML, h5py or "
-                              f"pandas")
+                              f"JAX, the JAX package, PyYAML, h5py, "
+                              f"pandas or pyarrow")
         return None
 
 
@@ -138,6 +140,17 @@ def test_port_imports_and_renders_without_jax():
     for line in ("[visit] 2 CCDs through the CLI", "[visit] (t)",
                  "[visit] (u)", "[visit] (v)", "[visit] RICE encode"):
         assert line in res.stdout, line
+    # phase 12: the skyCatalogs CCDs, the mapped catalog through the CLI
+    # with a sensor model and RowData, the native one, the saved screens
+    for line in ("[skycat] R22_S11 4004 x 4096 through the CLI",
+                 "[skycat] (w)", "[skycat] (x)", "[skycat K3] 512x512",
+                 "[skycat native] R22_S11", "tophat seds",
+                 "[skycat] (y)", "making 0 (bar 0)",
+                 "loaded screens bit-equal to the saved"):
+        assert line in res.stdout, line
+    for tag in ("skycat", "skycat native"):
+        for gate in "aef":
+            assert f"[{tag}] cold ({gate})" in res.stdout, (tag, gate)
 
 
 def _imported_modules(path):

@@ -12,8 +12,8 @@ stencil is left out of the JAX comparison, whose plain CPU twin takes
   * LSST_Flat configs (BF and SED photons) at a small image.xsize/ysize;
   * the CLI with --visits over an opsim .db, with -n / -j, and
     output.io_workers: 1 writing the serial path's files;
-  * output.mesh and the items still to port raise, naming their ROADMAP
-    item."""
+  * output.mesh raises, naming its ROADMAP item; the keys ported since
+    (sensor_model, atm_psf.save_file, sky_catalog) run a YAML visit."""
 import os
 import sqlite3
 
@@ -282,15 +282,97 @@ def test_io_workers_write_the_serial_path_s_files(tmp_path, instcat,  # noqa: F8
 
 
 @pytest.mark.parametrize("over, match", [
-    (["output.mesh={ccd: 2}"], "A7"),
-    (["image.sensor.type=Silicon",
-      "image.sensor.sensor_model=lsst_itl_50_32"], "sensor_model"),
-    (["psf.type=AtmosphericPSF", "input.atm_psf.save_file=atm.pkl"],
-     "save_file"),
-    (["input.sky_catalog.file_name=cat.parquet"], "A5b'")])
+    (["output.mesh={ccd: 2}"], "A7")])
 def test_items_still_to_port_raise(tmp_path, instcat, sed_dir,  # noqa: F811
                                    over, match):
     with pytest.raises(NotImplementedError, match=match):
         TR.run_visit({"template": "imsim-config-instcat"},
                      _over(instcat, sed_dir, tmp_path, *FAST, *over),
                      device="cpu")
+
+
+def _yaml(path, template, over: dict):
+    """A user config: the template and one dotted key a line (flow-form
+    JSON values)."""
+    import json
+
+    path.write_text("".join([f"template: {template}\n"] + [
+        f"{k}: {json.dumps(v)}\n" for k, v in over.items()]))
+    return str(path)
+
+
+def _dotted(over: list) -> dict:
+    """['a.b=v', ...] as {a.b: v} with the values read as YAML."""
+    from imsim_tpu_torch.config.yaml_subset import safe_load
+
+    return {k: safe_load(v) for k, v in (o.split("=", 1) for o in over)}
+
+
+@pytest.mark.parametrize("key", ["sensor_model", "save_file",
+                                 "sky_catalog"])
+def test_ported_keys_run_a_yaml_visit(tmp_path, monkeypatch, instcat,
+                                      sed_dir, key):  # noqa: F811
+    """The keys the port once refused, each in a YAML visit on the CPU:
+    image.sensor.sensor_model (a '{vendor}' vertex file; one batch with
+    one BF stencil pass on the full frame), input.atm_psf.save_file (the
+    second visit loads the first's screens and makes none: the same
+    eimage; a name without .npz is never found, as in the JAX package),
+    and input.sky_catalog (a parquet catalog on the skycat template, one
+    opsim_meta value through RowData)."""
+    from imsim_tpu_torch.benchmarks import skycat_workload as W
+
+    over = _dotted(_over(instcat, sed_dir, tmp_path / "out", *FAST))
+    template = "imsim-config-instcat"
+    if key == "sensor_model":
+        amp, core = W.SENSOR_MODELS["e2v"]
+        W.synth_vertex_file(str(tmp_path / "lsst_e2v_synth.dat"), amp=amp,
+                            core=core)
+        over.update({"image.sensor.type": "Silicon",
+                     "image.sensor.sensor_model": W.SENSOR_MODEL_NAME,
+                     "image.sensor.sensor_model_dir": str(tmp_path),
+                     "image.nbatch": 1, "image.nsubbatch": 1,
+                     "image.batch_size": 10_000_000})
+    elif key == "save_file":
+        over.update({"psf.type": "AtmosphericPSF", "image.nobjects": 3})
+    else:
+        wl = W.write_workload(str(tmp_path / "wl"), n_rows=200,
+                              window=(256, 256), margin=20.0, n_bright=0,
+                              total_photons=5e4, n_gal_native=10,
+                              n_star_native=5, native_photons=1e3)
+        template = "imsim-config-skycat"
+        over = {k: v for k, v in over.items()
+                if not k.startswith("input.instance_catalog")}
+        over.update({"input.sky_catalog.file_name": wl["catalog"],
+                     "input.sky_catalog.sed_dir": wl["sed_dir"],
+                     "opsim_meta": dict(W.OPSIM_META, rawSeeing={
+                         "type": "RowData",
+                         "file_name": wl["tables"]["csv"],
+                         "key_column": "observationId",
+                         "key_value": 181001, "field": "seeing"})})
+    if key != "save_file":
+        user = _yaml(tmp_path / "user.yaml", template, over)
+        (res,) = TR.run_visit(user, device="cpu")
+        assert np.isfinite(res["eimage"]).all() and res["eimage"].sum() > 0
+        assert os.path.exists(tmp_path / "out" / "eimage_R22_S11.fits")
+        if key == "sky_catalog":
+            assert res["host"].n_objects > 200     # galaxies' components
+            ctx = TR.build_visit_context(TI.load_config(user))
+            assert ctx.opsim["rawSeeing"] == 0.85
+        return
+    made = []
+    real = TR.make_screens
+    monkeypatch.setattr(TR, "make_screens",
+                        lambda *a, **k: made.append(1) or real(*a, **k))
+    for name, n_made in (("atm.npz", [1, 1]), ("atm_saved", [1, 2])):
+        eims = []
+        for run in range(2):
+            over["input.atm_psf.save_file"] = str(tmp_path / name)
+            over["output.dir"] = str(tmp_path / f"out_{name}_{run}")
+            (res,) = TR.run_visit(_yaml(tmp_path / "user.yaml", template,
+                                        over), device="cpu")
+            eims.append(res["eimage"])
+            assert len(made) == n_made[run]
+        assert np.array_equal(eims[0], eims[1])
+        made.clear()
+    assert os.path.exists(tmp_path / "atm_saved.npz")
+    assert not os.path.exists(tmp_path / "atm_saved")
