@@ -3,7 +3,8 @@ end, and check it: the bench CCD through the optics chain and through
 the analytic PSF, the flats, the silicon modes and object families, a
 CCD built from its pointing, a CCD rendered from an instance catalog
 through the runner's per-CCD path, a visit from a YAML config to files
-on disk through the CLI, and CCDs from skyCatalogs files.
+on disk through the CLI, CCDs from skyCatalogs files, and the visit over
+several ranks.
 
     python3 chip_smoke.py
 
@@ -111,7 +112,19 @@ ok line is never printed):
      K1-K3); (y) the example visit twice with input.atm_psf.save_file:
      the second makes no screens, loads the first's bit-equal, and its
      eimage is bit-equal (else held to the [visit] bars);
- 13. the kernel report (JSON, all eleven kernels, with bound_ms,
+ 13. phase 11's visit over several ranks (output.mesh, files under
+     chiprun_out/visit/, removed after): (z) both CCDs in this process
+     with output.mesh=1, a mesh of one on NCCL, its eimage, amp and truth
+     files bit-equal to phase 11's (`mesh_visit`); (aa) two ranks sharing
+     the card on gloo with {ccd: 2, phot: 1}, started as torchrun starts
+     them (`--mesh-child`), files bit-equal to (z)'s (`mesh_ranks_ccd`);
+     (ab) two ranks with {ccd: 1, phot: 2} on R22_S11, per-object
+     realized within 1e-6 relative and the render before the sky within
+     1e-6 of its max of a one-rank visit (sensor none), the charge within
+     2% of (z)'s with the silicon on (`mesh_ranks_phot`); each run's
+     launches, summed over its ranks, equal to its plan; (ac) the native
+     tokenizer's table against the Python loop's on the visit's catalog;
+ 14. the kernel report (JSON, all eleven kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last,
      the ok line.
 
@@ -126,6 +139,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()     # a phase-13 rank's wall counts from here
 
 def log(*a):
     print(*a, flush=True)
@@ -1496,41 +1510,43 @@ def _cli(device, argv):
     return results, wall, launches
 
 
-def phase_visit(device, small: bool):
+def phase_visit(device, small: bool, root: str):
     """A visit from YAML through the CLI, in process: two CCDs (R22_S11,
     E2V, and R10_S11, ITL) of a catalog over both, with io_workers and
     prefetch, OPD and truth outputs, gates (r), (s) and (a)-(f) tagged
     [visit]; the FEA visit (example catalog, fea terms, doOpt, OPD and
     sag, checkpointed) run twice, gates (t) and (u); the example flat
-    config, gate (v).  Files go under chiprun_out/visit/ (a temporary
-    directory in the rehearsal), removed after.  Returns the two-CCD
-    visit's launches."""
-    import shutil
-    import tempfile
-
+    config, gate (v).  Files go under `root` (visit_root), which phase 13
+    reuses.  Returns the two-CCD visit's launches and the workload."""
     from imsim_tpu_torch.benchmarks import instcat_workload as WL
 
     t0 = time.perf_counter()
+    wl = WL.write_workload(os.path.join(root, "workload"),
+                           more_dets=VISIT_DETS[1:],
+                           **(VISIT_SMALL if small else {}))
+    log(f"[visit] workload written in {time.perf_counter() - t0:.1f} s:"
+        f" {VISIT_SMALL['n_lines'] if small else 120_000} object lines "
+        f"over each of {', '.join(VISIT_DETS)}")
+    launches = _visit_ccds(device, small, root, wl)
+    _visit_fea(device, small, root)
+    _visit_flat(device, small, root)
+    log(f"[visit] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches, wl
+
+
+def visit_root(small: bool) -> str:
+    """The directory of phases 11 and 13: chiprun_out/visit/ (a
+    temporary directory in the rehearsal), emptied first; run() removes
+    it after phase 13."""
+    import shutil
+    import tempfile
+
     if small:
-        root = tempfile.mkdtemp(prefix="visit_")
-    else:
-        root = os.path.join(HERE, "chiprun_out", "visit")
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-    try:
-        wl = WL.write_workload(os.path.join(root, "workload"),
-                               more_dets=VISIT_DETS[1:],
-                               **(VISIT_SMALL if small else {}))
-        log(f"[visit] workload written in {time.perf_counter() - t0:.1f} s:"
-            f" {VISIT_SMALL['n_lines'] if small else 120_000} object lines "
-            f"over each of {', '.join(VISIT_DETS)}")
-        launches = _visit_ccds(device, small, root, wl)
-        _visit_fea(device, small, root)
-        _visit_flat(device, small, root)
-        log(f"[visit] phase 11 took {time.perf_counter() - t0:.1f} s")
-        return launches
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        return tempfile.mkdtemp(prefix="visit_")
+    root = os.path.join(HERE, "chiprun_out", "visit")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
 
 
 def _visit_ccds(device, small, root, wl):
@@ -1854,23 +1870,37 @@ def _skycat_kernels(device, tag, prep, small):
     return rows
 
 
-def _plan_launches(device, results):
-    """The launches the plan predicts: K1 and K2 once a batch on the
-    optics path, K3 once a sub-batch with the silicon."""
+def _ccd_plan(r) -> dict:
+    """A rendered CCD's batch plan: its batches, sub-batches, optics and
+    silicon (the JSON a phase-13 rank reports)."""
     from imsim_tpu_torch.image import photon_pooling as PP
+
+    prep = r["prep"]
+    return dict(nb=PP.pooled_plan(r["host"], r["modes"], prep.pcfg)[2],
+                nsub=prep.pcfg.nsub, optics=bool(prep.use_optics),
+                silicon=prep.silicon is not None)
+
+
+def _plan_of(ccds) -> dict:
+    """The launches CCD plans predict: K1 and K2 once a batch on the
+    optics path, K3 once a sub-batch with the silicon."""
     from imsim_tpu_torch.ops import _build
 
     want = {k: 0 for k in _build.LAUNCHES}
-    if device.type == "cuda":
-        for r in results:
-            prep = r["prep"]
-            nb = PP.pooled_plan(r["host"], r["modes"], prep.pcfg)[2]
-            if prep.use_optics:
-                want["scan_slot_prefix"] += nb
-                want["field_to_sensor"] += nb
-            if prep.silicon is not None:
-                want["stencil_pair"] += nb * prep.pcfg.nsub
+    for c in ccds:
+        if c["optics"]:
+            want["scan_slot_prefix"] += c["nb"]
+            want["field_to_sensor"] += c["nb"]
+        if c["silicon"]:
+            want["stencil_pair"] += c["nb"] * c["nsub"]
     return want
+
+
+def _plan_launches(device, results):
+    """The launches the results' plans predict on the card (none on the
+    CPU, where the plain twins run)."""
+    return _plan_of([_ccd_plan(r) for r in results
+                     if device.type == "cuda"])
 
 
 def _render_gates(device, tag, label, r, seed, rate):
@@ -2125,15 +2155,298 @@ def _skycat_saved_screens(device, small, root):
                       0.2)
 
 
+# ---- phase 13: CCDs and photons over several ranks ------------------------
+
+MESH_DET = "R22_S11"
+MESH_TIMEOUT = 420
+
+
+def mesh_child(prefix: str, device: str, argv: list) -> int:
+    """One rank of a phase-13 launch (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment, as
+    torchrun sets them): the CLI in process (it initializes the group
+    from that environment), then `{prefix}.{rank}.json` with the kernel
+    launches and, per CCD this rank wrote, its batch plan, and
+    `{prefix}.{rank}.{det}.npz` with its render before the sky and its
+    realized fluxes."""
+    _import_port()
+    import numpy as np
+
+    from imsim_tpu_torch import __main__ as CLI
+    from imsim_tpu_torch.ops import _build
+
+    rank = int(os.environ["RANK"])
+    if device == "cpu":
+        import torch
+
+        # ranks on the CPU share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // int(os.environ["WORLD_SIZE"])))
+    ccds = []
+
+    def keep(r):
+        npz = f"{prefix}.{rank}.{r['det_name']}.npz"
+        np.savez(npz, image=r["image"].cpu().numpy(),
+                 realized=np.asarray(r["realized"], np.float64))
+        ccds.append(dict(_ccd_plan(r), det=r["det_name"], npz=npz))
+
+    _build.reset_launches()
+    rc = CLI.main([*argv, "--device", device, "-q"], on_result=keep)
+    with open(f"{prefix}.{rank}.json", "w") as f:
+        json.dump(dict(rc=rc, launches=dict(_build.LAUNCHES), ccds=ccds,
+                       wall=time.perf_counter() - T0), f)
+    return rc
+
+
+def _mesh_launch(device, root: str, tag: str, argv: list, world: int = 2):
+    """Start `world` ranks of mesh_child sharing this card (gloo): the
+    processes, their log files and the output prefix."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    prefix = os.path.join(root, f"mesh_{tag}")
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out = open(f"{prefix}.{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--mesh-child", prefix, device.type, *argv], env=env,
+            stdout=out, stderr=subprocess.STDOUT, start_new_session=True),
+            out))
+    return procs, prefix, time.perf_counter()
+
+
+def _mesh_wait(launch) -> tuple:
+    """Wait for a launch's ranks (killed at MESH_TIMEOUT); returns (each
+    rank's JSON, the ranks' longest wall from their start to their files
+    written, the launches summed over the ranks)."""
+    import signal
+
+    procs, prefix, t0 = launch
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(MESH_TIMEOUT - (time.perf_counter() - t0),
+                               1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+            out.close()
+    codes = [p.returncode for p, _ in procs]
+    if codes != [0] * len(procs):
+        for r in range(len(procs)):
+            with open(f"{prefix}.{r}.log") as f:
+                log(f"[mesh] rank {r} of {os.path.basename(prefix)} "
+                    f"(exit {codes[r]}), log tail:\n" + f.read()[-3000:])
+        _check(False, f"{os.path.basename(prefix)}: ranks exited {codes}")
+    outs = []
+    for r in range(len(procs)):
+        with open(f"{prefix}.{r}.json") as f:
+            outs.append(json.load(f))
+    total = {k: sum(o["launches"][k] for o in outs)
+             for k in outs[0]["launches"]}
+    return outs, max(o["wall"] for o in outs), total
+
+
+def _same_files(a: str, b: str, dets) -> dict:
+    """{file: bit-equal} of the eimage, RICE amp and truth files of
+    `dets` in directories a and b; an eimage that differs is logged with
+    its count of differing pixels and their largest gap."""
+    import numpy as np
+
+    from imsim_tpu_torch.io.fits import read_fits
+
+    out = {}
+    for det in dets:
+        for name in (f"eimage_{det}.fits", f"amp_{det}.fits",
+                     f"centroid_{det}.txt"):
+            pa, pb = os.path.join(a, name), os.path.join(b, name)
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                out[name] = fa.read() == fb.read()
+            if name.startswith("eimage") and not out[name]:
+                (_, x), = read_fits(pa)
+                (_, y), = read_fits(pb)
+                gap = np.abs(x.astype(np.float64) - y)
+                log(f"[mesh] {name}: {int((gap > 0).sum())} pixels differ, "
+                    f"largest gap {gap.max():.4g}")
+    return out
+
+
+def phase_mesh(device, small: bool, root: str, wl) -> dict:
+    """Phase 11's visit over several ranks (output.mesh), under phase
+    11's directory: (z) the two CCDs in this process with output.mesh=1
+    (a group of one: NCCL on the card, gloo in the rehearsal), their
+    eimage, amp and truth files bit-equal to phase 11's serial files;
+    (aa) two ranks sharing the card on gloo with {ccd: 2, phot: 1}, files
+    bit-equal to (z)'s; (ab) two ranks with {ccd: 1, phot: 2} on
+    R22_S11: per-object realized within 1e-6 relative and the render
+    before the sky within 1e-6 of its max of a one-rank visit with
+    image.sensor.type none, and with the silicon on the charge within 2%
+    of (z)'s (brighter-fatter sees the image of the previous outer step
+    on each rank); the rank launches start together with this process's
+    visit of the same stage.  (ac) the native tokenizer against the
+    Python loop on the workload catalog.  Kernel launches: each run's
+    sum over its ranks equals its plan.  Returns the paths' launches."""
+    import numpy as np
+
+    from imsim_tpu_torch.electronics.camera import get_camera
+
+    t0 = time.perf_counter()
+    cam = get_camera()
+    base = [os.path.join(root, "visit.yaml"), "output.opd.enabled=false"]
+    one = base + [f"output.det_num=[{cam.det_num(MESH_DET)}]"]
+    # the rehearsal's one batch would leave the second photon rank idle
+    none = ["image.sensor.type=none"] + (["image.nbatch=3"] if small
+                                         else [])
+    d = {k: os.path.join(root, f"mesh_{k}_out")
+         for k in ("z", "aa", "zn", "abn", "abs")}
+
+    aa = _mesh_launch(device, root, "aa", base + [
+        f"output.dir={d['aa']}", "output.mesh={ccd: 2, phot: 1}"])
+    res_z, wall_z, l_z = _cli(device, base + [f"output.dir={d['z']}",
+                                              "output.mesh=1"])
+    outs_aa, wall_aa, l_aa = _mesh_wait(aa)
+    want_z = _plan_launches(device, res_z)
+    same_z = _same_files(os.path.join(root, "ccds"), d["z"], VISIT_DETS)
+    log(f"[mesh] (z): output.mesh=1, one rank ("
+        f"{'nccl' if device.type == 'cuda' else 'gloo'}), 2 CCDs through the"
+        f" CLI in {wall_z:.2f} s: launches {l_z} (plan {want_z}); files "
+        f"against phase 11's serial visit: "
+        + ", ".join(f"{k} {'bit-equal' if v else 'DIFFER'}"
+                    for k, v in same_z.items()))
+    _check(all(same_z.values()) and
+           [r["det_name"] for r in res_z] == list(VISIT_DETS),
+           "the mesh-of-one visit's files differ from the serial visit's")
+    _check(device.type != "cuda" or l_z == want_z,
+           f"mesh_visit launches {l_z} != {want_z}")
+    same_aa = _same_files(d["z"], d["aa"], VISIT_DETS)
+    wrote = [[c["det"] for c in o["ccds"]] for o in outs_aa]
+    want_aa = _plan_of([c for o in outs_aa for c in o["ccds"]])
+    log(f"[mesh] (aa): {{ccd: 2, phot: 1}}, 2 ranks on gloo sharing the "
+        f"card, {wall_aa:.2f} s a rank (process start to files): rank 0 "
+        f"wrote "
+        f"{wrote[0]}, rank 1 {wrote[1]}; launches summed over the ranks "
+        f"{l_aa} (plan {want_aa}); files against (z): "
+        + ", ".join(f"{k} {'bit-equal' if v else 'DIFFER'}"
+                    for k, v in same_aa.items()))
+    _check(all(same_aa.values()) and wrote == [[VISIT_DETS[0]],
+                                                [VISIT_DETS[1]]],
+           "the two CCD ranks' files differ from (z)'s")
+    _check(device.type != "cuda" or l_aa == want_aa,
+           f"mesh_ranks_ccd launches {l_aa} != {want_aa}")
+
+    phot = "output.mesh={ccd: 1, phot: 2}"
+    abn = _mesh_launch(device, root, "abn", one + none + [
+        f"output.dir={d['abn']}", phot])
+    # the rehearsal leaves the silicon to the card: the BF stencil's
+    # plain twin takes tens of seconds over the full frame on the CPU
+    abs_ = None if small else _mesh_launch(device, root, "abs", one + [
+        f"output.dir={d['abs']}", phot])
+    res_zn, wall_zn, _ = _cli(device, one + none + [f"output.dir={d['zn']}",
+                                                    "output.mesh=1"])
+    outs_n, wall_n, l_n = _mesh_wait(abn)
+    ref = res_zn[0]
+    ref_img = ref["image"].cpu().numpy()
+    (c_n,) = outs_n[0]["ccds"]
+    with np.load(c_n["npz"]) as z:
+        img_n, real_n = z["image"], z["realized"]
+    r_gap = float(np.max(np.abs(real_n - ref["realized"])
+                         / np.maximum(np.abs(ref["realized"]), 1e-300)))
+    i_gap = float(np.abs(img_n - ref_img).max() / ref_img.max())
+    want_n = _plan_of([c_n])
+    log(f"[mesh] (ab) sensor none: {{ccd: 1, phot: 2}} on {MESH_DET}, "
+        f"{wall_n:.2f} s a rank (process start to files; one rank in this "
+        f"process {wall_zn:.2f} s); only rank 0 wrote: "
+        f"{'yes' if not outs_n[1]['ccds'] else 'NO'}; launches {l_n} "
+        f"(plan {want_n}); realized max rel gap {r_gap:.3g} (bar 1e-6) "
+        f"over {len(real_n)} objects; render before the sky max gap "
+        f"{i_gap:.3g} of its max {ref_img.max():.1f} (bar 1e-6)")
+    _check(not outs_n[1]["ccds"] and r_gap <= 1e-6 and i_gap <= 1e-6,
+           "the photon ranks' render is off the one-rank render")
+    _check(device.type != "cuda" or l_n == want_n,
+           f"mesh_ranks_phot launches {l_n} != {want_n}")
+    l_phot = dict(l_n)
+    if abs_ is not None:
+        outs_s, wall_s, l_s = _mesh_wait(abs_)
+        (c_s,) = outs_s[0]["ccds"]
+        with np.load(c_s["npz"]) as z:
+            q_s = float(z["image"].sum(dtype=np.float64))
+        r_z = next(r for r in res_z if r["det_name"] == MESH_DET)
+        q_z = float(r_z["image"].double().sum())
+        want_s = _plan_of([c_s])
+        log(f"[mesh] (ab) silicon: {wall_s:.2f} s a rank; "
+            f"launches {l_s} (plan {want_s}); charge {q_s:.6g} against "
+            f"(z)'s {q_z:.6g}: rel gap {q_s / q_z - 1:+.3g} (bar 2%)")
+        _check(abs(q_s / q_z - 1) < 0.02 and
+               (device.type != "cuda" or l_s == want_s),
+               "the photon ranks' silicon render is off (z)'s")
+        l_phot = {k: l_n[k] + l_s[k] for k in l_n}
+    _mesh_tokenizer(wl)
+    log(f"[mesh] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return dict(mesh_visit=l_z, mesh_ranks_ccd=l_aa, mesh_ranks_phot=l_phot)
+
+
+def _mesh_tokenizer(wl):
+    """(ac): the native tokenizer's table against the Python loop's on the
+    visit's catalog: every column bit-equal but the two where the JAX
+    package's two paths differ too (a Sersic index at a rounding tie of
+    20 n, 0.05 apart; mu in its last bits, at most 2 ulp)."""
+    import numpy as np
+
+    from imsim_tpu_torch.catalog import instcat as IC
+
+    path = wl["catalog"]["r"]
+    t = time.perf_counter()
+    nat, n1 = IC._parse_instcat(path)
+    t_nat = time.perf_counter() - t
+    t = time.perf_counter()
+    py, n2 = IC._parse_instcat(path, force_python=True)
+    t_py = time.perf_counter() - t
+    cols = ("ra", "dec", "magnorm", "redshift", "g1", "g2", "mu", "p0",
+            "p1", "p2", "p3", "int_av", "int_rv", "mw_av", "mw_rv")
+    diff = {c: int(np.sum(getattr(nat, c) != getattr(py, c))) for c in cols}
+    strings = all(list(getattr(nat, c)) == list(getattr(py, c))
+                  for c in ("id", "sed_name", "image_file")) and \
+        np.array_equal(nat.obj_type, py.obj_type)
+    d1 = np.nonzero(nat.p1 != py.p1)[0]
+    mid = 10.0 * (nat.p1[d1] + py.p1[d1])
+    ties = bool(np.all(nat.obj_type[d1] == IC.SERSIC) and np.allclose(
+        np.abs(nat.p1[d1] - py.p1[d1]), 0.05, rtol=1e-9) and np.allclose(
+        mid - np.floor(mid), 0.5, atol=1e-9))
+    dm = np.nonzero(nat.mu != py.mu)[0]
+    ulp = np.maximum(np.spacing(nat.mu[dm]), np.spacing(py.mu[dm]))
+    mu_ok = bool(np.all(np.abs(nat.mu[dm] - py.mu[dm]) <= 2 * ulp))
+    others = {c: v for c, v in diff.items() if v and c not in ("p1", "mu")}
+    log(f"[mesh] (ac): the native tokenizer on the visit's catalog "
+        f"({n1} object lines, {len(nat)} rows): {t_nat:.3f} s against the "
+        f"Python loop's {t_py:.3f} s; ids, SEDs, types "
+        f"{'equal' if strings else 'DIFFER'}; rows off the loop's: p1 "
+        f"{diff['p1']} (Sersic rounding ties: {'yes' if ties else 'NO'}), "
+        f"mu {diff['mu']} (<= 2 ulp: {'yes' if mu_ok else 'NO'}), every "
+        f"other column {'bit-equal' if not others else others}")
+    _check(n1 == n2 and strings and ties and mu_ok and not others,
+           "the native tokenizer's table is off the Python loop's")
+
+
 def run(device, small: bool = False) -> dict:
-    """Phases 2-12 on `device`; returns the kernel report.  Each row's
+    """Phases 2-13 on `device`; returns the kernel report.  Each row's
     `launches` is the bench CCD's (phase 4; the probes' for K4 and P1-P7)
     and `launches_by_path` the count on every path that drives it
     (`itl_ccd`: phase 9's CCD built from the pointing; `instcat_ccd`:
     phase 10's CCD from the instance catalog, its cold r render;
     `visit_yaml`: phase 11's two-CCD visit through the CLI;
     `skycat_ccd`, `skycat_native`: phase 12's CCDs from the mapped and
-    the native sky catalog)."""
+    the native sky catalog; `mesh_visit`: phase 13's output.mesh=1 visit,
+    `mesh_ranks_ccd` and `mesh_ranks_phot`: its two-rank visits, summed
+    over the ranks)."""
     import torch
 
     _import_port()
@@ -2160,8 +2473,16 @@ def run(device, small: bool = False) -> dict:
     del state
     paths["itl_ccd"] = phase_pointing(device, small)["launches"]
     paths["instcat_ccd"] = phase_instcat(device, small)
-    paths["visit_yaml"] = phase_visit(device, small)
-    paths["skycat_ccd"], paths["skycat_native"] = phase_skycat(device, small)
+    root = visit_root(small)
+    try:
+        paths["visit_yaml"], wl = phase_visit(device, small, root)
+        paths["skycat_ccd"], paths["skycat_native"] = phase_skycat(device,
+                                                                   small)
+        paths.update(phase_mesh(device, small, root, wl))
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()
                                    if c[row["name"]]}
@@ -2183,4 +2504,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

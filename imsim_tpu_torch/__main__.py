@@ -4,9 +4,16 @@ overrides on the card, or on `--device cpu`.  Flags: -v / -q logging,
 --profile (per-detector wall time and peak RSS), --visits (opsim visit
 ids, `a:b` or `a,b,...`, rendered in turn), -n / -j (split the visit's
 detectors over N jobs; this is job J).
+
+Several ranks: `torchrun --nproc-per-node N -m imsim_tpu_torch user.yaml
+output.mesh="{ccd: C, phot: M}"` (C x M <= N); with WORLD_SIZE > 1 the
+CLI initializes the process group from torchrun's environment (NCCL
+when each rank has a card, gloo on `--device cpu` or when ranks share a
+card) and destroys it at the end.
 """
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -42,6 +49,26 @@ def main(argv=None, on_result=None) -> int:
                         format="%(asctime)s %(levelname)s %(message)s")
     logger = logging.getLogger("imsim_tpu_torch")
 
+    group = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if group:
+        import torch.distributed as dist
+
+        from .parallel.mesh import init_group
+
+        if dist.is_initialized():
+            group = False      # the caller's group: the caller ends it
+        else:
+            init_group(args.device)
+    try:
+        _run(args, logger, on_result)
+    finally:
+        if group:
+            dist.destroy_process_group()
+    return 0
+
+
+def _run(args, logger, on_result):
+    """The visits of `args` in turn."""
     from .config.runner import run_visit_iter
     from .utils.process_info import stage_profile
 
@@ -79,7 +106,6 @@ def main(argv=None, on_result=None) -> int:
                         time.time() - tv)
     logger.info("%d visit(s) complete in %.1fs", len(visit_ids),
                 time.time() - t0)
-    return 0
 
 
 if __name__ == "__main__":

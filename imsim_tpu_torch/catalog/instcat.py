@@ -6,8 +6,9 @@ GAMMA2 KAPPA DRA DDEC TYPE [params...] [dust...]``, with includeobj
 recursion and gzip, the WCS + edge_pix pixel-box cull, the skip-invalid
 rules and the magnorm >= 50 sentinel, flip_g2, the brightest-first
 magnorm sort and the lensing conversion gamma/kappa -> (g1, g2, mu).
-The tokenizer is the JAX package's Python loop (its reference
-semantics); its native C++ tokenizer is a host speed item (ROADMAP A).
+Lines are tokenized by the native C++ tokenizer (catalog/native_instcat.py,
+io/native/instcat.cc) or, with force_python, by the JAX package's Python
+loop (its reference semantics): both give the same table.
 """
 from __future__ import annotations
 
@@ -163,9 +164,18 @@ def _parse_instcat_cached(file_name, mtime, flip_g2, skip_invalid):
                           skip_invalid=skip_invalid)
 
 
-def _parse_instcat(file_name, flip_g2=True, skip_invalid=True):
+def _parse_instcat(file_name, flip_g2=True, skip_invalid=True,
+                   force_python=False):
     """Tokenize every `object` line into the full (unculled)
-    ObjectTable.  Returns (table, n_total_lines)."""
+    ObjectTable.  Returns (table, n_total_lines).
+
+    The native C++ tokenizer (catalog/native_instcat.py) is the default;
+    this Python loop is its plain twin (force_python=True), the JAX
+    package's reference semantics."""
+    if not force_python:
+        from .native_instcat import parse_instcat_native
+
+        return parse_instcat_native(file_name, flip_g2, skip_invalid)
     g2_sign = -1.0 if flip_g2 else 1.0
 
     rows = {k: [] for k in ("id", "ra", "dec", "magnorm", "obj_type",

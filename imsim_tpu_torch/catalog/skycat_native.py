@@ -210,6 +210,14 @@ class NativeSkyCatalog:
                 out.append(os.path.join(self.catalog_dir, name))
         return out
 
+    def component_spec(self, parent: str,
+                       subtype: str) -> SkyObjectType | None:
+        """The object type of `parent`'s `subtype` component, or None."""
+        for ot in self.object_types.values():
+            if ot.parent == parent and ot.subtype == subtype:
+                return ot
+        return None
+
     def get_objects_by_region(self, vertices_deg, obj_types=None,
                               logger=None) -> ObjectTable:
         """Every object (galaxies as their components) in the files that

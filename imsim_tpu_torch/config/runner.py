@@ -1,5 +1,5 @@
 """Visit runner: a YAML config to rendered CCDs on disk
-(imsim_tpu/config/runner.py counterpart, without the device mesh).
+(imsim_tpu/config/runner.py counterpart).
 
   load_config -> build_visit_context: each input.<name> section through
   config.registry.INPUT_TYPES (opsim metadata, telescope with its FEA /
@@ -17,11 +17,11 @@
 `run_visit_iter` prefetches the next CCD's host preparation in a worker
 thread while the main thread renders (its scene is uploaded by the main
 thread), and with `output.io_workers` hands the file writes (RICE encode
-and disk, which release the GIL) to a thread pool.  `output.mesh` (CCDs
-over several devices) is ROADMAP A7 and raises.  Every device step runs
-on the caller's device, "cuda" unless the caller says otherwise.  The
-host steps are the JAX package's numpy in its order, so a CCD's
-preparation equals the JAX runner's bit for bit
+and disk, which release the GIL) to a thread pool.  `output.mesh` renders
+the CCDs over the ranks of a device mesh (parallel.visit).  Every device
+step runs on the caller's device, "cuda" unless the caller says
+otherwise.  The host steps are the JAX package's numpy in its order, so
+a CCD's preparation equals the JAX runner's bit for bit
 (tests/test_torch_instcat_ccd.py, chip_smoke gates (o) and (r)).
 """
 from __future__ import annotations
@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import convert
 from ..catalog import opsim as opsim_mod
@@ -852,6 +853,20 @@ def render_one_ccd(ctx: VisitContext, det, device="cuda", *,
         image = torch.zeros((pcfg.ysize, pcfg.xsize), dtype=torch.float32,
                             device=device)
     clock("render")
+    return finish_ccd(ctx, prep, image, modes, realized, pieces, tally,
+                      seconds, clock, write=write, logger=logger)
+
+
+def finish_ccd(ctx: VisitContext, prep: CcdPrep, image, modes, realized,
+               pieces, tally, seconds: dict, clock, *, write: bool = False,
+               logger=None) -> dict:
+    """A rendered CCD's last stages on its device: the sky and its noise
+    (`pieces` from sky_noise_pieces), the cosmic rays and the readout to
+    raw amps; returns render_one_ccd's result dict (and with `write`, its
+    files written).  `clock` takes each stage's seconds into `seconds`."""
+    device = image.device
+    det_name, det_num = prep.det_name, prep.det_num
+    pcfg = prep.pcfg
     if pieces is not None:
         level, grad, vig, vstep, fringe = pieces
         n_cfg = ctx.cfg.get("image", {}).get("noise", {}) or {}
@@ -1091,39 +1106,65 @@ def _extra_truth(ctx, result, node, det_name, det_num, outdir):
 def run_visit_iter(cfg_or_path, overrides=(), device="cuda", logger=None):
     """Render a visit, yielding each CCD's result as soon as its files
     are written (or handed to the IO pool), so a caller never holds more
-    than the CCDs in flight.
+    than the CCDs in flight (visit_loop).  With output.process_info:
+    {file_name: ...} a per-detector process catalog is written at the
+    end (with several ranks, one a rank: `.rank<r>` after the name).
 
-    The next CCD's host preparation runs in a worker thread while the
-    main thread renders (output.prefetch: false turns it off; flats and
-    one-CCD visits never prefetch); the main thread uploads it.  With
-    output.io_workers >= 1 and more than one CCD, the file writes go to
-    that many threads, at most 2 x io_workers CCDs pending.  With
-    output.process_info: {file_name: ...} a per-detector process catalog
-    is written at the end.  output.mesh raises (ROADMAP A7)."""
+    output.mesh renders the CCDs over the ranks of a ('ccd', 'phot')
+    mesh (parallel.visit.run_visit_mesh); a rank then yields the CCDs
+    whose files it wrote."""
     cfg = load_config(cfg_or_path, overrides)
-    out_cfg = cfg.get("output", {}) or {}
     is_flat = (cfg.get("image", {}) or {}).get("type") == "LSST_Flat"
-    if out_cfg.get("mesh") and not is_flat:
-        raise NotImplementedError(
-            "output.mesh (CCDs over several GPUs) is not ported yet "
-            "(ROADMAP A7)")
     ctx = build_visit_context(cfg, logger)
     out_cfg = ctx.cfg.get("output", {}) or {}
     dets = _det_list(ctx)
     pi_cfg = out_cfg.get("process_info") or {}
-    io_workers = int(out_cfg.get("io_workers", 0))
+    if out_cfg.get("mesh") and not is_flat:
+        from ..parallel.visit import run_visit_mesh
 
-    def note(result):
+        results = run_visit_mesh(ctx, dets, out_cfg["mesh"], logger,
+                                 device=device)
+    else:
+        results = visit_loop(
+            ctx, dets, lambda det_num, prep: render_one_ccd(
+                ctx, det_num, device, prep=prep, logger=logger),
+            device, logger, prefetch=not is_flat)
+    for result in results:
         if pi_cfg:
             from ..utils.process_info import record_det_row
 
             record_det_row(result["det_name"], logger)
-        return result
+        yield result
+
+    if pi_cfg:
+        from ..utils.process_info import write_det_catalog
+
+        fname = _format_name(pi_cfg.get("file_name",
+                                        "process_info_{visit}.txt"),
+                             ctx, "all", 0)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            fname += f".rank{dist.get_rank()}"
+        write_det_catalog(os.path.join(out_cfg.get("dir", "output"), fname))
+
+
+def visit_loop(ctx: VisitContext, dets, render, device, logger=None,
+               prefetch: bool = True):
+    """Render `dets` in turn with render(det_num, prep) -> result (None:
+    nothing for this process to write) and write each result's files.
+
+    The next CCD's host preparation runs in a worker thread while the
+    main thread renders (output.prefetch: false turns it off; so does
+    prefetch=False, and one-CCD lists never prefetch); render uploads
+    it.  With output.io_workers >= 1 and more than one CCD, the file
+    writes go to that many threads, at most 2 x io_workers CCDs pending.
+    The worker threads run no device collective."""
+    out_cfg = ctx.cfg.get("output", {}) or {}
+    io_workers = int(out_cfg.get("io_workers", 0))
 
     def preps_ahead():
         """(det, host prep or None): the next CCD's prep runs in a worker
         thread while this one renders."""
-        if is_flat or len(dets) <= 1 \
+        if not prefetch or len(dets) <= 1 \
                 or out_cfg.get("prefetch", True) is False:
             for det_num in dets:
                 yield det_num, None
@@ -1143,37 +1184,33 @@ def run_visit_iter(cfg_or_path, overrides=(), device="cuda", logger=None):
 
     if io_workers <= 0 or len(dets) <= 1:
         for det_num, prep in preps_ahead():
-            yield note(render_one_ccd(ctx, det_num, device, prep=prep,
-                                      write=True, logger=logger))
-    else:
-        from concurrent.futures import ThreadPoolExecutor
+            result = render(det_num, prep)
+            if result is not None:
+                prepare_readout(ctx, result)
+                write_outputs(ctx, result, logger)
+                yield result
+        return
+    from concurrent.futures import ThreadPoolExecutor
 
-        def write_and_release(result):
-            # each pending write holds a (16, raw_ny, raw_nx) int32 stack:
-            # drop it once the file is on disk
-            write_outputs(ctx, result, logger)
-            result.pop("amps", None)
+    def write_and_release(result):
+        # each pending write holds a (16, raw_ny, raw_nx) int32 stack:
+        # drop it once the file is on disk
+        write_outputs(ctx, result, logger)
+        result.pop("amps", None)
 
-        futures = []
-        with ThreadPoolExecutor(max_workers=io_workers) as pool:
-            for det_num, prep in preps_ahead():
-                while len(futures) >= 2 * io_workers:
-                    futures.pop(0).result()
-                result = render_one_ccd(ctx, det_num, device, prep=prep,
-                                        logger=logger)
-                prepare_readout(ctx, result)       # device, main thread
-                futures.append(pool.submit(write_and_release, result))
-                yield note(result)
-            for f in futures:
-                f.result()                         # IO errors surface
-
-    if pi_cfg:
-        from ..utils.process_info import write_det_catalog
-
-        fname = _format_name(pi_cfg.get("file_name",
-                                        "process_info_{visit}.txt"),
-                             ctx, "all", 0)
-        write_det_catalog(os.path.join(out_cfg.get("dir", "output"), fname))
+    futures = []
+    with ThreadPoolExecutor(max_workers=io_workers) as pool:
+        for det_num, prep in preps_ahead():
+            while len(futures) >= 2 * io_workers:
+                futures.pop(0).result()
+            result = render(det_num, prep)
+            if result is None:
+                continue
+            prepare_readout(ctx, result)           # device, main thread
+            futures.append(pool.submit(write_and_release, result))
+            yield result
+        for f in futures:
+            f.result()                             # IO errors surface
 
 
 def run_visit(cfg_or_path, overrides=(), device="cuda", logger=None):

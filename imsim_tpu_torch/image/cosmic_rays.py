@@ -68,6 +68,15 @@ class CosmicRayCatalog:
                 fps.append(_synth_spot(rng))
         return cls(fps)
 
+    def save(self, path):
+        """The footprint bank as an .npz (read back by load)."""
+        np.savez_compressed(
+            path,
+            lens=np.array([len(f[0]) for f in self.footprints]),
+            x=np.concatenate([f[0] for f in self.footprints]),
+            y=np.concatenate([f[1] for f in self.footprints]),
+            e=np.concatenate([f[2] for f in self.footprints]))
+
     @classmethod
     def load(cls, path):
         z = np.load(path)
@@ -115,6 +124,40 @@ class CosmicRayCatalog:
                         np.concatenate(es)))
         exptime = float(hdr.get("EXPTIME", 1.0))
         return cls(out), len(out) / max(exptime, 1e-9)
+
+    def write_catalog_fits(self, path, exptime, num_pix=16_000_000,
+                           extname="COSMIC_RAYS"):
+        """Write the reference-format span catalog (the inverse of
+        read_catalog_fits; imsim/cosmic_rays.py:150-185): footprint
+        pixels quantized to integer-pixel runs along +x."""
+        from ..io.fits import HDU, BinTableHDU, write_fits
+
+        fp_id, x0s, y0s, vals = [], [], [], []
+        for i, (x, y, e) in enumerate(self.footprints):
+            ix = np.round(x).astype(int)
+            iy = np.round(y).astype(int)
+            for yy in np.unique(iy):
+                m = iy == yy
+                xs = ix[m]
+                es = e[m]
+                order = np.argsort(xs)
+                xs, es = xs[order], es[order]
+                # split into contiguous runs
+                brk = np.nonzero(np.diff(xs) != 1)[0] + 1
+                for seg_x, seg_e in zip(np.split(xs, brk),
+                                        np.split(es, brk)):
+                    fp_id.append(i)
+                    x0s.append(int(seg_x[0]))
+                    y0s.append(int(yy))
+                    vals.append(np.asarray(seg_e, np.int32))
+        hdu = BinTableHDU(
+            dict(fp_id=np.asarray(fp_id, np.int32),
+                 x0=np.asarray(x0s, np.int16),
+                 y0=np.asarray(y0s, np.int16),
+                 pixel_values=vals),
+            name=extname,
+            header={"EXPTIME": exptime, "NUM_PIX": num_pix})
+        write_fits(path, [HDU(None, is_primary=True), hdu])
 
 
 _default_catalog = None

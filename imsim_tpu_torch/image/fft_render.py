@@ -321,6 +321,11 @@ def add_stamps(image: torch.Tensor, stamps: torch.Tensor, x0, y0):
     return padded[N:N + H, N:N + W]
 
 
+def add_stamp(image: torch.Tensor, stamp: torch.Tensor, x0: int, y0: int):
+    """One stamp through add_stamps."""
+    return add_stamps(image, stamp[None], [x0], [y0])
+
+
 # ---- device: whole-frame star synthesis -----------------------------------
 
 def _sep_phases(freqs: torch.Tensor, pos: torch.Tensor,

@@ -116,6 +116,46 @@ def pick_nbatch(total: int, cfg: PoolingConfig) -> int:
     return max(need, min(cfg.nbatch, max(total, 1)))
 
 
+def make_strided_batches(host: SceneHost, modes, cfg: PoolingConfig):
+    """Yield each batch's (obj_idx int64, weight float32) of the strided
+    photon -> batch assignment (photon g of the object-major list goes to
+    batch g % nb), built on the host: the plain twin of
+    batch_obj_assignment, which the pooled path computes on the
+    device."""
+    sel = np.asarray(modes) != FFT
+    counts = np.where(sel, host.flux[:host.n_objects], 0).astype(np.int64)
+    obj_of_photon = np.repeat(np.arange(host.n_objects, dtype=np.int64),
+                              counts)
+    total = len(obj_of_photon)
+    if total == 0:
+        return
+    nb = pick_nbatch(total, cfg)
+    dev = host.scene.device
+    for b in range(nb):
+        sl = obj_of_photon[b::nb]
+        size = int(np.ceil(total / nb))
+        idx = np.full(size, host.scene.n - 1, np.int64)
+        w = np.zeros(size, np.float32)
+        idx[:len(sl)] = sl
+        w[:len(sl)] = 1.0
+        yield torch.as_tensor(idx, device=dev), torch.as_tensor(w,
+                                                                device=dev)
+
+
+def batch_obj_assignment(cum_counts: torch.Tensor, total: int, b: int,
+                         nb: int, batch_size: int):
+    """Batch b of nb of the strided photon -> object map on the device:
+    global photon g = b + nb * slot belongs to the bin of g in the
+    cumulative per-object counts.  Returns (obj int32, alive float32)."""
+    dev = cum_counts.device
+    s = torch.arange(batch_size, dtype=torch.int64, device=dev)
+    g = b + nb * s
+    alive = g < total
+    obj = torch.searchsorted(cum_counts.to(torch.int64), g, right=True)
+    obj = torch.clamp(obj, max=cum_counts.shape[0] - 1).to(torch.int32)
+    return obj, alive.to(torch.float32)
+
+
 def member_offsets(pair: int, share: int) -> np.ndarray:
     """Ordinal offsets of the two-level block layout's members (copy of
     imsim_tpu's member_offsets): slot block beta = h*share + r holds
@@ -241,9 +281,14 @@ def slot_deltas(params: torch.Tensor, cum: torch.Tensor, b: int, nb: int,
     keep = q < mp
     mu = j0[keep] % pe
     beta = (mu % pair) * share + torch.div(mu, pair, rounding_mode="floor")
-    d = torch.zeros((C, pe * mp), dtype=params.dtype, device=params.device)
-    d.index_add_(1, beta * mp + q[keep], _deltas(params)[keep].T)
-    return d.reshape(C, pe, mp)
+    # objects that share a slot (those wholly before the batch, empty
+    # ones) sum their deltas: index_put_ with accumulate adds a slot's
+    # rows in index order on every device, so a render repeats bit for
+    # bit (index_add_ adds them in whatever order CUDA's atomics take)
+    d = torch.zeros((pe * mp, C), dtype=params.dtype, device=params.device)
+    d.index_put_((beta * mp + q[keep],), _deltas(params)[keep],
+                 accumulate=True)
+    return d.T.contiguous().reshape(C, pe, mp)
 
 
 def materialize_rows_T(params: torch.Tensor, cum: torch.Tensor, b: int,
@@ -301,9 +346,6 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     numpy), and a saved state resumes there: its batches and FFT pass
     are not rendered again."""
     dev = host.scene.device
-    optics = tel is not None and ctx is not None
-    psf_tables = None if optics else analytic_psf_tables(
-        cfg.fwhm, cfg.gauss_fwhm, dev, cfg.psf_table)
     psf_mtf = make_psf_mtf(cfg)
     modes = classify_objects(host, cfg, psf_mtf)
     image = torch.zeros((cfg.ysize, cfg.xsize), dtype=torch.float32,
@@ -331,36 +373,92 @@ def render_ccd_pooled(seed: int, host: SceneHost, cfg: PoolingConfig,
     if tally is not None and saved is None:
         # the pass runs on an empty frame: its sum is what it added
         tally["fft"] = image.sum(dtype=torch.float64)
-    cum, total, nb, batch_size = pooled_plan(host, modes, cfg)
-    if total == 0:
+    ps = pooled_pass(seed, host, modes, cfg, silicon, tel, ctx, screens,
+                     sk_table, profiles)
+    if ps.total == 0:
         return image, modes, realized.cpu().numpy()
+    for b in range(start_batch, ps.nb):
+        image = ps.batch(b, image, tally,
+                         realized if track_realized else None)
+        if checkpointer is not None and \
+                (b + 1) % cfg.nbatch_per_checkpoint == 0:
+            save(b + 1)
+    return image, modes, realized.cpu().numpy()
+
+
+@dataclasses.dataclass
+class PooledPass:
+    """The per-CCD constants of the pooled photon pass (pooled_pass):
+    its plan (cum, total, nb, batch_size), the block layout (pair,
+    share), the visit's photon -> object map, the materialized columns,
+    the static tree-ring field and the physics of each batch."""
+
+    seed: int
+    host: SceneHost
+    cfg: PoolingConfig
+    cum: torch.Tensor
+    total: int
+    nb: int
+    batch_size: int
+    pair: int
+    share: int
+    obj_map: torch.Tensor | None
+    mat: torch.Tensor
+    tr_field: object
+    families: tuple
+    psf_tables: dict | None
+    tel: object
+    ctx: object
+    screens: object
+    sk_table: object
+    silicon: object
+    profiles: object
+
+    def batch(self, b: int, image, tally=None, realized=None):
+        """Global batch b of the pass into `image` (in place for the
+        binner) with the streams ("photons", b) and ("si", b) of the
+        CCD's seed; returns the image."""
+        dev = image.device
+        return _pooled_batch_step(
+            stream(self.seed, "photons", b, device=dev),
+            stream(self.seed, "si", b, device=dev), self.host.scene,
+            self.obj_map, self.cum, self.mat, self.total, b, self.nb,
+            self.batch_size, self.tel, self.ctx, self.screens,
+            self.sk_table, self.psf_tables, self.silicon, image, self.cfg,
+            self.pair, self.share, self.tr_field, self.families,
+            self.profiles, tally, realized)
+
+
+def pooled_pass(seed: int, host: SceneHost, modes, cfg: PoolingConfig,
+                silicon=None, tel=None, ctx=None, screens=None,
+                sk_table=None, profiles=None) -> PooledPass:
+    """The pooled pass of a CCD after its classification: the plan, and
+    with photons to shoot the device map and tables its batches read."""
+    dev = host.scene.device
+    optics = tel is not None and ctx is not None
+    cum, total, nb, batch_size = pooled_plan(host, modes, cfg)
     pair = cfg.pupil_pairing
     share = max(cfg.screen_share, 1) if pair > 1 else 1
     cum_dev = torch.as_tensor(cum, device=dev)
-    obj_map = build_obj_map(cum_dev, total, nb, batch_size, pair, share)
+    obj_map = None if total == 0 else build_obj_map(
+        cum_dev, total, nb, batch_size, pair, share)
     mat = torch.cat([host.scene.params, host.scene.wl_cheb], dim=1)
     # static tree-ring field, once per CCD, folded into every batch's
     # continuity update; on the optics path the depth/diffusion
     # displacement then fuses into the K2 chain, on the analytic path it
     # runs per chunk in accumulate_silicon
     tr_field = None
-    if silicon is not None and silicon.tr_active:
+    if total and silicon is not None and silicon.tr_active:
         from ..sensor.silicon import tree_ring_field
         tr_field = tree_ring_field(silicon, (cfg.ysize, cfg.xsize), dev)
     families = tuple(sorted(set(
         host.scene.params[:host.n_objects, COL_TYPE].to(torch.int64)
         .tolist())))
-    for b in range(start_batch, nb):
-        image = _pooled_batch_step(
-            stream(seed, "photons", b, device=dev),
-            stream(seed, "si", b, device=dev), host.scene, obj_map, cum_dev,
-            mat, total, b, nb, batch_size, tel, ctx, screens, sk_table,
-            psf_tables, silicon, image, cfg, pair, share, tr_field, families,
-            profiles, tally, realized if track_realized else None)
-        if checkpointer is not None and \
-                (b + 1) % cfg.nbatch_per_checkpoint == 0:
-            save(b + 1)
-    return image, modes, realized.cpu().numpy()
+    psf_tables = None if optics else analytic_psf_tables(
+        cfg.fwhm, cfg.gauss_fwhm, dev, cfg.psf_table)
+    return PooledPass(seed, host, cfg, cum_dev, total, nb, batch_size, pair,
+                      share, obj_map, mat, tr_field, families, psf_tables,
+                      tel, ctx, screens, sk_table, silicon, profiles)
 
 
 def _pooled_batch_step(gen, si_gen, scene, obj_map, cum, mat, total, b, nb,

@@ -80,6 +80,18 @@ class DeviceScene:
     def device(self) -> torch.device:
         return self.params.device
 
+    @property
+    def x(self):
+        return self.params[:, COL_X]
+
+    @property
+    def y(self):
+        return self.params[:, COL_Y]
+
+    @property
+    def obj_type(self):
+        return self.params[:, COL_TYPE].to(torch.int32)
+
     @classmethod
     def from_columns(cls, x, y, obj_type, p0, p1, p2, p3, g1, g2, mu,
                      wl_icdf, aux_cloud=None, device="cuda"):

@@ -202,4 +202,20 @@ long rice_decode_i32(const uint8_t* buf, long nbytes, int32_t* a, long n) {
   return n;
 }
 
+// ---------------------------------------------------------------------------
+// Fast phoSim instance-catalog scanner: the byte offsets of the lines
+// that start with 'object'; returns their count (at most max_lines).
+long instcat_scan(const char* buf, long n, long* line_starts, long max_lines) {
+  long count = 0;
+  long i = 0;
+  while (i < n && count < max_lines) {
+    if (n - i >= 6 && std::memcmp(buf + i, "object", 6) == 0) {
+      line_starts[count++] = i;
+    }
+    while (i < n && buf[i] != '\n') ++i;
+    ++i;
+  }
+  return count;
+}
+
 }  // extern "C"

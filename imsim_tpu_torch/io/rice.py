@@ -42,6 +42,10 @@ def _load():
         lib.rice_decode_i32.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_long]
+        lib.instcat_scan.restype = ctypes.c_long
+        lib.instcat_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_long),
+            ctypes.c_long]
         _lib = lib
         return lib
 
@@ -67,6 +71,18 @@ def rice_decode(buf: bytes, n: int) -> np.ndarray:
     if r != n:
         raise ValueError("RICE decode failed")
     return a
+
+
+def instcat_object_offsets(data: bytes) -> np.ndarray:
+    """The byte offsets of the lines of a catalog buffer that start with
+    'object' (the native scan), int64."""
+    lib = _load()
+    max_lines = max(data.count(b"\n"), 16)
+    out = np.empty(max_lines, np.int64)
+    n = lib.instcat_scan(data, len(data),
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                         max_lines)
+    return out[:n]
 
 
 def serialize_rice_hdu(hdu) -> bytes:

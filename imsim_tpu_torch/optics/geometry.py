@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# the JAX package's legacy fixed Newton budget (kept for reference)
+NEWTON_ITERS = 4
 # Newton steps after the closed-form conic root (+2 on an asphere)
 NEWTON_POLISH = 1
 
@@ -50,6 +52,20 @@ def conic_sag_slope(r2, c, kappa):
     # d/dr2 [c r2 / (1+s)] = c/(1+s) + c r2 * (c^2 (1+kappa)/2) / (s (1+s)^2)
     return rdiv(c, 1.0 + s) + c * r2 * (c * c * (1.0 + kappa) * 0.5) \
         / (s * (1.0 + s) ** 2)
+
+
+def surface_sag(x, y, c, kappa, coefs):
+    """Conic + even-polynomial asphere: sag(r) = conic + sum a_i
+    r^(4+2i); coefs: (a0, a1, ...) floats, empty for a pure conic."""
+    r2 = x * x + y * y
+    z = conic_sag(r2, c, kappa)
+    if len(coefs):
+        # Horner in r^2, overall factor r^4
+        acc = 0.0
+        for a in reversed(coefs):
+            acc = acc * r2 + a
+        z = z + r2 * r2 * acc
+    return z
 
 
 def surface_normal(x, y, c, kappa, coefs):
@@ -176,3 +192,10 @@ def air_index_excess(wavelength_nm, pressure_kpa=69.33,
     n_m1e6 = n_m1e6 - ((0.0624 - 0.000680 * sigma2)
                        / (1.0 + 0.003661 * t_c)) * w_mbar
     return 1e-6 * n_m1e6
+
+
+def air_index(wavelength_nm, pressure_kpa=69.33, temperature_k=293.15,
+              h2o_pressure_kpa=1.0):
+    """n_air (1 + air_index_excess)."""
+    return 1.0 + air_index_excess(wavelength_nm, pressure_kpa,
+                                  temperature_k, h2o_pressure_kpa)

@@ -51,6 +51,13 @@ def rays_from_field(thx, thy, pupil_u, pupil_v, z_start: float = 10.0):
     return px, py, pz, vx, vy, vz
 
 
+def surface_scalars(tel: Telescope):
+    """Per-surface parameter tuples (c, kappa, coefs, ap_lo, ap_hi,
+    vtx3, rot9) of the surface matrix as python floats, the currency of
+    trace_surfaces."""
+    return [tel.surface(i) for i in range(len(tel.kinds))]
+
+
 def trace(tel: Telescope, px, py, pz, vx, vy, vz, wavelength_nm,
           zk_textures=None, with_path: bool = False):
     """Trace rays through every surface to the detector.  Returns dict
@@ -59,17 +66,25 @@ def trace(tel: Telescope, px, py, pz, vx, vy, vz, wavelength_nm,
     zk_textures: {surface index: (G, G, 3) numpy (slope_x, slope_y, sag)
     texture} from build_zk_textures, a thin-screen kick at each mirror
     that has one."""
+    return trace_surfaces(surface_scalars(tel), tel.kinds, px, py, pz, vx,
+                          vy, vz, wavelength_nm, zk_textures, with_path)
+
+
+def trace_surfaces(surfs, kinds, px, py, pz, vx, vy, vz, wavelength_nm,
+                   zk_textures=None, with_path: bool = False):
+    """The surface loop of `trace` over per-surface tuples
+    (surface_scalars): an asphere's intersection takes the Newton
+    polish of its coefficients, a conic's the closed form's."""
     n_silica = G.silica_index(wavelength_nm)
     vignette = torch.zeros_like(px, dtype=torch.bool)
     path = torch.zeros_like(px) if with_path else None
-    for i, kind in enumerate(tel.kinds):
-        c_i, k_i, coefs_i, ap_lo, ap_hi, vtx, R = tel.surface(i)
+    for i, kind in enumerate(kinds):
+        c_i, k_i, coefs_i, ap_lo, ap_hi, vtx, R = surfs[i]
         lx, ly, lz, lvx, lvy, lvz = _to_local(R, vtx, px, py, pz,
                                               vx, vy, vz)
-        steps = tel.newton_steps(i)
         x, y, z, t, Fres = G.intersect(
             lx, ly, lz, lvx, lvy, lvz, c_i, k_i,
-            coefs_i if steps > G.NEWTON_POLISH else ())
+            coefs_i if any(a != 0.0 for a in coefs_i) else ())
         vignette = vignette | (torch.abs(Fres) > 1e-5)
         if with_path:
             # t reached this surface in silica iff it is a REFRACT_OUT

@@ -171,6 +171,10 @@ class WCSFactory:
             thy.extend(cy + r * np.sin(a))
         return np.array(thx), np.array(thy)
 
+    def make_culling_wcs(self, ccd: CCD) -> TanSipWCS:
+        """The WCS the catalog cull uses: the CCD's own."""
+        return self.get_wcs(ccd)
+
     def get_wcs(self, ccd: CCD, z_offset: float = None) -> TanSipWCS:
         """Fit the order-3 TAN-SIP pixel->ICRF WCS for one detector.
         z_offset defaults to the detector's focal height offset."""

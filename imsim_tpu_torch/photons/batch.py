@@ -39,3 +39,34 @@ class PhotonBatch:
 
     def replace(self, **kw) -> "PhotonBatch":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def zeros(cls, n: int, dtype=torch.float32,
+              device="cuda") -> "PhotonBatch":
+        """n dead photons at 622.2 nm."""
+        z = torch.zeros((n,), dtype=dtype, device=device)
+        return cls(x=z, y=z, flux=z,
+                   wavelength=torch.full((n,), 622.2, dtype=dtype,
+                                         device=device),
+                   dxdz=z, dydz=z, pupil_u=z, pupil_v=z, time=z)
+
+    @classmethod
+    def concat(cls, batches) -> "PhotonBatch":
+        """Several batches pooled into one (a field that is None in any
+        batch is None)."""
+        def cat(name):
+            vals = [getattr(b, name) for b in batches]
+            if any(v is None for v in vals):
+                return None
+            return torch.cat(vals)
+
+        return cls(**{f.name: cat(f.name) for f in dataclasses.fields(cls)})
+
+    def scaled_flux(self, s) -> "PhotonBatch":
+        return self.replace(flux=self.flux * s)
+
+    def shifted(self, dx, dy) -> "PhotonBatch":
+        return self.replace(x=self.x + dx, y=self.y + dy)
+
+    def total_flux(self):
+        return torch.sum(self.flux)

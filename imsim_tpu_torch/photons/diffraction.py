@@ -139,3 +139,17 @@ def apply_diffraction(pupil_u, pupil_v, dxdz, dydz, wavelength_nm, normal,
     du = kick * nx
     dv = kick * ny
     return dxdz + (c * du + s * dv), dydz + (-s * du + c * dv)
+
+
+def field_rotation_angle(t, latitude, altitude, azimuth):
+    """Field rotation angle theta(t) [rad]: atan2 of
+    field_rotation_sincos (host and analysis callers)."""
+    s, c = field_rotation_sincos(t, latitude, altitude, azimuth)
+    return torch.atan2(s, c)
+
+
+def field_rotation_rate(latitude, altitude, azimuth) -> float:
+    """d(theta)/dt at t = 0 [rad/s]: omega cos(lat) cos(az) / cos(alt),
+    the alt-az field-rotation rate."""
+    return (OMEGA_EARTH * np.cos(latitude) * np.cos(azimuth)
+            / max(np.cos(altitude), 1e-6))

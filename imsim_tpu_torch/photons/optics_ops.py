@@ -17,7 +17,7 @@ from ..optics import geometry as G
 from ..optics.trace import rays_from_field, trace
 from ..utils import rng
 from . import diffraction as D
-from .ops import silicon_index
+from .ops import ARCSEC, silicon_index  # noqa: F401
 
 # trace frame -> focal-plane DVCS (imsim_tpu.optics.wcs_factory.FOCAL_FRAME)
 FOCAL_FRAME = ((0.0, 1.0), (-1.0, 0.0))

@@ -321,3 +321,48 @@ def apply_shear_mag(dx, dy, g1, g2, mu):
         torch.clamp(1.0 - gsq, min=1e-12))
     return (norm * ((1 + g1) * dx + g2 * dy),
             norm * (g2 * dx + (1 - g1) * dy))
+
+
+def sample_double_gaussian(gen, n: int, fwhm1: float, fwhm2: float,
+                           wgt1: float, draws=None):
+    """(dx, dy) from a two-component Gaussian mixture (the fallback PSF
+    family DoubleGaussianPSF).  draws: (u (n,), xy (n, 2)) uniform and
+    standard normal draws (default: from `gen`)."""
+    if draws is None:
+        draws = (rng.uniform(gen, n),
+                 torch.randn((n, 2), generator=gen, device=gen.device,
+                             dtype=torch.float32))
+    u, xy = draws
+    s1 = fwhm1 / 2.3548200450309493
+    s2 = fwhm2 / 2.3548200450309493
+    s = torch.where(u < wgt1, torch.full_like(u, s1),
+                    torch.full_like(u, s2))
+    return s * xy[:, 0], s * xy[:, 1]
+
+
+def sample_sersic(gen, n: int, sersic_n, hlr, grid=None, draws=None):
+    """(dx, dy) from a circular Sersic profile by bilinear interpolation
+    of the (n, u) grid of sersic_cdf_grid; sersic_n and hlr may be
+    per-photon tensors.  draws: (u, theta_u) uniform draws in [0, 1)
+    (default: from `gen`)."""
+    dev = gen.device if draws is None else draws[0].device
+    if grid is None:
+        grid = torch.as_tensor(sersic_cdf_grid(), device=dev)
+    if draws is None:
+        draws = (rng.uniform(gen, n), rng.uniform(gen, n))
+    u, tu = draws
+    n_u = grid.shape[1]
+    fn = (torch.as_tensor(sersic_n, dtype=torch.float32, device=dev)
+          - SERSIC_N_GRID[0]) / (SERSIC_N_GRID[1] - SERSIC_N_GRID[0])
+    fn = torch.clamp(fn, 0.0, len(SERSIC_N_GRID) - 1.000001)
+    i0 = torch.floor(fn).to(torch.int64)
+    wn = fn - i0
+    fu = u * (n_u - 1.000001)
+    j0 = torch.floor(fu).to(torch.int64)
+    wu = fu - j0
+    i0 = i0.expand_as(j0) if i0.dim() == 0 else i0
+    x = (grid[i0, j0] * (1 - wn) * (1 - wu) + grid[i0, j0 + 1] * (1 - wn) * wu
+         + grid[i0 + 1, j0] * wn * (1 - wu) + grid[i0 + 1, j0 + 1] * wn * wu)
+    r = x * hlr
+    theta = tu * (2 * np.pi)
+    return r * torch.cos(theta), r * torch.sin(theta)

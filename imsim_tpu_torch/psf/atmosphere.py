@@ -293,3 +293,14 @@ def first_kick_angles(pupil_u, pupil_v, time, screens: AtmScreens,
         ddx = ddx + wx.repeat(share)
         ddy = ddy + wy.repeat(share)
     return ddx, ddy
+
+
+def first_kick(photons, screens: AtmScreens, pixel_scale: float = 0.2,
+               theta_x: float = 0.0, theta_y: float = 0.0):
+    """Image-domain wrapper of first_kick_angles: the photons' pixel
+    positions deflected by the screens."""
+    arcsec = np.pi / 180 / 3600
+    ddx, ddy = first_kick_angles(photons.pupil_u, photons.pupil_v,
+                                 photons.time, screens, theta_x, theta_y)
+    return photons.replace(x=photons.x + ddx / arcsec / pixel_scale,
+                           y=photons.y + ddy / arcsec / pixel_scale)

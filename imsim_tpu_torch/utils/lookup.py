@@ -25,6 +25,32 @@ class UniformTable:
     def x_max(self) -> float:
         return self.x0 + (self.y.shape[0] - 1) * self.dx
 
+    @classmethod
+    def from_pairs(cls, x, y, n=None, dtype=torch.float32,
+                   device="cuda") -> "UniformTable":
+        """Arbitrary (x, y) samples resampled onto a uniform grid (np.interp
+        on the host, y on `device`)."""
+        x = np.asarray(x, float)
+        y = np.asarray(y, float)
+        order = np.argsort(x)
+        x, y = x[order], y[order]
+        if n is None:
+            n = max(len(x), 2)
+        xu = np.linspace(x[0], x[-1], n)
+        yu = np.interp(xu, x, y)
+        return cls(float(xu[0]), float(xu[1] - xu[0]),
+                   torch.as_tensor(yu, dtype=dtype, device=device))
+
+    @classmethod
+    def from_func(cls, f, x_min, x_max, n, dtype=torch.float32,
+                  device="cuda") -> "UniformTable":
+        """f sampled at n uniform points of [x_min, x_max] (on the host,
+        y on `device`)."""
+        xu = np.linspace(x_min, x_max, n)
+        return cls(float(x_min), float((x_max - x_min) / (n - 1)),
+                   torch.as_tensor(np.asarray(f(xu)), dtype=dtype,
+                                   device=device))
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         n = self.y.shape[0]
         f = torch.clamp((x - self.x0) / self.dx, 0.0, n - 1.000001)

@@ -11,6 +11,9 @@ import os
 import resource
 import time
 
+# per-stage rows of stage_profile
+_rows: list[dict] = []
+
 
 def rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
@@ -28,10 +31,24 @@ def stage_profile(name: str, logger=None, enabled: bool = True):
                        wall_s=time.time() - t0,
                        cpu_s=time.process_time() - cpu0,
                        maxrss_mb=rss_mb())
+            _rows.append(row)
             if logger:
                 logger.info("%s: wall %.2fs cpu %.2fs maxrss %.0f MB",
                             name, row["wall_s"], row["cpu_s"],
                             row["maxrss_mb"])
+
+
+def rows():
+    return list(_rows)
+
+
+def write_catalog(path: str):
+    """The stage rows as a catalog."""
+    with open(path, "w") as f:
+        f.write("# stage pid wall_s cpu_s maxrss_mb\n")
+        for r in _rows:
+            f.write(f"{r['stage']!r} {r['pid']} {r['wall_s']:.3f} "
+                    f"{r['cpu_s']:.3f} {r['maxrss_mb']:.1f}\n")
 
 
 # per-detector process rows (the reference's per-stamp catalog columns

@@ -144,7 +144,7 @@ def test_parse_instcat(catalog, flip_g2, skip_invalid):
     a = JI._parse_instcat(catalog, flip_g2=flip_g2,
                           skip_invalid=skip_invalid, force_python=True)
     b = TI._parse_instcat(catalog, flip_g2=flip_g2,
-                          skip_invalid=skip_invalid)
+                          skip_invalid=skip_invalid, force_python=True)
     assert a[1] == b[1] == 100 + 3
     tables_equal(a[0], b[0])
     assert len(b[0]) == (100 if skip_invalid else 103)

@@ -5,7 +5,8 @@ from the committed state must run, with those and the JAX package
 them.
 chip_smoke.py's CPU rehearsal runs there too (every phase at small size,
 the state built from the pointing, the instance-catalog CCD, the visit
-from YAML through the CLI and the skyCatalogs CCDs included), and the
+from YAML through the CLI, the skyCatalogs CCDs and the visit over gloo
+ranks included), and the
 script itself refuses to run without CUDA or outside the checkout."""
 import ast
 import glob
@@ -79,7 +80,7 @@ def _env():
 def test_port_imports_and_renders_without_jax():
     res = subprocess.run([sys.executable, "-c", REHEARSE], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
-                         timeout=480)
+                         timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = res.stdout.splitlines()
     n_mod = int(next(ln for ln in lines if ln.startswith("MODULES")).split()[1])
@@ -151,6 +152,14 @@ def test_port_imports_and_renders_without_jax():
     for tag in ("skycat", "skycat native"):
         for gate in "aef":
             assert f"[{tag}] cold ({gate})" in res.stdout, (tag, gate)
+    # phase 13: the visit over several ranks (gloo ranks in the
+    # rehearsal), its files bit-equal, the native tokenizer
+    for line in ("[mesh] (z): output.mesh=1, one rank (gloo)",
+                 "[mesh] (aa): {ccd: 2, phot: 1}, 2 ranks",
+                 "[mesh] (ab) sensor none", "[mesh] (ac)"):
+        assert line in res.stdout, line
+    assert "DIFFER" not in "".join(ln for ln in lines
+                                   if ln.startswith("[mesh]"))
 
 
 def _imported_modules(path):

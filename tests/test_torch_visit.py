@@ -12,8 +12,8 @@ stencil is left out of the JAX comparison, whose plain CPU twin takes
   * LSST_Flat configs (BF and SED photons) at a small image.xsize/ysize;
   * the CLI with --visits over an opsim .db, with -n / -j, and
     output.io_workers: 1 writing the serial path's files;
-  * output.mesh raises, naming its ROADMAP item; the keys ported since
-    (sensor_model, atm_psf.save_file, sky_catalog) run a YAML visit."""
+  * the keys the port once refused (sensor_model, atm_psf.save_file,
+    sky_catalog) run a YAML visit (output.mesh: test_torch_mesh_visit.py)."""
 import os
 import sqlite3
 
@@ -279,16 +279,6 @@ def test_io_workers_write_the_serial_path_s_files(tmp_path, instcat,  # noqa: F8
         assert (runs["io"] / f).read_bytes() == \
             (runs["serial"] / f).read_bytes(), f
     assert TR.HOST_TIMERS["io_s"] > 0 and TR.HOST_TIMERS["readout_s"] > 0
-
-
-@pytest.mark.parametrize("over, match", [
-    (["output.mesh={ccd: 2}"], "A7")])
-def test_items_still_to_port_raise(tmp_path, instcat, sed_dir,  # noqa: F811
-                                   over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TR.run_visit({"template": "imsim-config-instcat"},
-                     _over(instcat, sed_dir, tmp_path, *FAST, *over),
-                     device="cpu")
 
 
 def _yaml(path, template, over: dict):
