@@ -20,7 +20,9 @@ ok line is never printed):
      bound (operations over 67 TFLOP/s FP32 or bytes over 3.35 TB/s,
      whichever is larger) and, where one PyTorch call computes the same
      function, that call's time (K3: one float32 conv2d, first held to
-     1e-5 of max |out| of the twin);
+     1e-5 of max |out| of the twin); gate (ad): K1 repeats bit for bit,
+     five calls on batch 0's deltas and one on a second stream, each
+     equal to the first;
   4. the whole bench CCD, cold and warm: render_ccd_pooled with the FFT
      branch (the 17 bright stars in one Fourier synthesis, with
      diffraction spikes at the full well), the sky and its noise, and the
@@ -125,8 +127,8 @@ ok line is never printed):
      launches, summed over its ranks, equal to its plan; (ac) the native
      tokenizer's table against the Python loop's on the visit's catalog;
  14. the kernel report (JSON, all eleven kernels, with bound_ms,
-     bound_by, library_ms and the launches on every path) and, last,
-     the ok line.
+     bound_by, library_ms and the launches on every path) and, last, the
+     ok line.
 
 The script needs CUDA and refuses to run without it.  `run()` takes a
 device and a size so the CPU tests can rehearse the same phases at a
@@ -209,7 +211,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     timer = Timer(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
-    k1, field, nb, N = _k1_row(timer, host, cfg, device)
+    k1, field, nb, N = _k1_row(timer, host, cfg, device, repeat=True)
     rows = [k1, _k2_row(timer, gen, state.tel, ctx, state.silicon, field, N,
                         device, (552.0, 691.0))]
     del field
@@ -220,11 +222,12 @@ def phase_kernels(device, state, host, cfg, ctx):
     return rows, nb
 
 
-def _k1_row(timer, host, cfg, device, tag="K1"):
+def _k1_row(timer, host, cfg, device, tag="K1", repeat=False):
     """K1 against its plain twin at batch 0's slot layout of the scene's
     pooled plan: the report row (bar sqrt(objects in the batch) float32
     ulps of each column's scale), the scanned field angles (K2's input),
-    the batch count and the batch's photon slots."""
+    the batch count and the batch's photon slots.  With `repeat`, gate
+    (ad) on the same deltas."""
     import numpy as np
     import torch
 
@@ -269,6 +272,9 @@ def _k1_row(timer, host, cfg, device, tag="K1"):
     if len(bad):
         raise AssertionError(f"{tag}: columns {bad.tolist()} exceed "
                              f"sqrt(n) ulp: {gap.numpy()[bad]} > {tol[bad]}")
+    del want
+    if repeat:
+        _k1_repeats(d, pair, share, got, tag)
     # bound: one add per element, d read and the rows written once; no
     # single PyTorch call computes the slot-order scan
     row = dict(
@@ -283,6 +289,35 @@ def _k1_row(timer, host, cfg, device, tag="K1"):
     field = (got.reshape(C, N)[0].contiguous(),
              got.reshape(C, N)[1].contiguous())
     return row, field, nb, N
+
+
+def _k1_repeats(d, pair, share, first, tag):
+    """Gate (ad): K1 repeats bit for bit.  Five calls on d and, on the
+    card, one on a second stream, each torch.equal to `first` (the
+    look-back folds its predecessors serially, so which tiles published
+    first cannot change a bit)."""
+    import torch
+
+    from imsim_tpu_torch.ops import scanrows
+
+    same = [torch.equal(scanrows.scan_slot_prefix(d, pair, share), first)
+            for _ in range(5)]
+    where = "five calls on the stream"
+    if d.is_cuda:
+        main = torch.cuda.current_stream(d.device)
+        side = torch.cuda.Stream(device=d.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            other = scanrows.scan_slot_prefix(d, pair, share)
+        main.wait_stream(side)
+        same.append(torch.equal(other, first))
+        del other
+        where += " and one on a second stream"
+    else:
+        where += " (the CPU has no second stream)"
+    log(f"[{tag}] (ad) K1 repeats bit for bit: {sum(same)} of {len(same)} "
+        f"calls ({where}) equal to the first")
+    _check(all(same), f"{tag}: (ad) K1 does not repeat bit for bit")
 
 
 def _k2_row(timer, gen, tel, octx, silicon, field, N, device, wl,

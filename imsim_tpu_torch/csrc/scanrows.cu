@@ -1,37 +1,66 @@
 // K1: ordinal-order prefix sum of slot-layout deltas, and K4: the plain
-// lane prefix sum.
+// lane prefix sum.  Both are one pass with a decoupled look-back whose
+// bits repeat (one copy, `resolve_tile`, serves both).
 //
 // K1 replaces imsim_tpu/ops/scanrows.py::scan_slot_prefix (Pallas
-// _kernel_slot_mxu, a triangular-matmul scan on the TPU's matrix unit).
+// _kernel_slot_mxu, a triangular-matmul scan on the TPU's matrix unit
+// over a sequential grid that carries the running total in VMEM).
 // K4 replaces imsim_tpu/ops/scanrows.py::scan_lanes (Pallas _kernel, a
 // sequential grid carrying the running row total in VMEM).
 //
 // K1.  Input d (C, pe, mp) float32: plane beta, column q holds the delta
 // of photon ordinal j = pe*q + mu(beta).  Output out[c, beta, q] = sum of
-// d over all slots with ordinal <= that of (beta, q).  Column q therefore
-// holds pe consecutive ordinals, and the ordinal sequence is: columns in
-// q order, and within a column the planes in mu order.
+// d[c] over all slots with ordinal <= that of (beta, q).  Column q
+// therefore holds pe consecutive ordinals, and the ordinal sequence is:
+// columns in q order, and within a column the planes in mu order.
 //
-// Bound on the H100: memory.  About 3 flops per element against 4 B read
-// twice and 4 B written once (production: C = 24, pe = 16, mp ~ 1.04M,
-// 1.6 GB per pass).  The card has no ordered grid, so nothing carries
-// between blocks.  Design, simple and right first:
-//   (a) tile_sum: each block sums its tile of kTile columns over all
-//       planes, for one c (blockIdx.y);
-//   (b) carry_scan: one block per c turns the tile totals into exclusive
-//       carries;
-//   (c) tile_scan: each block rescans its tile with its carry: a block
-//       exclusive scan of the column sums (kThreads consecutive columns
-//       per round, so loads coalesce), then a walk down each column's
-//       planes in mu order.
-// Accumulation is float32 in cumsum order class (sequential within a
-// column, tree within a block, sequential across blocks).  The tail
-// q >= mp is masked, so any mp works.  No tensor cores: a prefix sum is
+// Bound on the H100: bytes.  One add per element against 4 B read once
+// and 4 B written once (the bench CCD: C = 24, pe = 16, mp = 1.17e6,
+// 3.59 GB a call, >= 1.07 ms at 3.35 TB/s).  The card has no ordered
+// grid, so the carry between tiles goes through device memory.  Design,
+// one read and one write of each element:
+//   * a tile is one row c: all pe planes of W consecutive columns, W a
+//     multiple of 128 with pe * W <= 16,384 floats (64 KB of dynamic
+//     shared memory, three blocks an SM), whatever pe is; a block of 256
+//     threads loads it once with coalesced 16-byte __ldg loads (each
+//     plane row is contiguous in q; masked scalar loads where mp % 4 != 0
+//     or a base is off 16 bytes, zeros past the row's end);
+//   * thread t owns the four columns of quad k = r * 256 + t in each round
+//     r (one round at pe = 16): it sums each column's planes from shared
+//     memory, scans the quad serially; the quad totals go through
+//     interleaved warp shuffle scans and one warp scan of the (round,
+//     warp) parts (K4's scheme);
+//   * tile ids come from an atomicAdd counter in row-major (row, tile)
+//     order, not from blockIdx, so a tile waits only on tiles that took
+//     their id earlier and are running; each tile publishes a 64-bit
+//     status word {flag in the high half: 0 none, 1 the tile's aggregate,
+//     2 its inclusive prefix; the float's bits in the low half} with
+//     st.release.gpu (read with ld.acquire.gpu), its aggregate before the
+//     look-back and its prefix after it;
+//   * the look-back folds serially, oldest first: warp 0 watches the 32
+//     nearest predecessors, waits until the window holds an inclusive
+//     prefix P_j and every tile after j has its aggregate, and computes
+//     fl(...fl(fl(P_j + a_{j+1}) + a_{j+2})... + a_{i-1}); with no prefix
+//     in the window it waits (the window's oldest tile took its id first
+//     and will publish).  The tile publishes P_i = fl(excl + a_i), so by
+//     induction every P_i is the chained fl(P_{i-1} + a_i) whichever
+//     tiles happened to publish first: the output repeats bit for bit;
+//   * then each thread walks its columns' planes in mu order from shared
+//     memory and writes each running sum once, as a streaming float4
+//     store (__stcs; scalar where mp % 4 != 0);
+//   * one launch a call; the wrapper zeroes the status words and the
+//     counter on the stream (torch allocator memory, nothing static), so
+//     back-to-back calls and calls on two streams share no state.
+// Order of the float32 sum: a column's planes in plane order for its
+// total and in mu order for its running sums; serial within a quad, a
+// tree (warp shuffles, then one warp) across the tile's quads; a chain
+// across the tiles of a row.  The tail q >= mp is masked, so any mp
+// works.  No tensor cores and no TF32: a prefix sum in slot order is
 // not a matrix product on this card.
 //
 // K4.  out[c, n] = sum of x[c, 0..n] over x (C, N) float32, any N.  Bound:
-// memory, one read and one write (3.22 GB at the probe's 24 x 16,777,216,
-// >= 0.96 ms at 3.35 TB/s).  Design, one pass with decoupled look-back
+// bytes, one read and one write (3.22 GB at the probe's 24 x 16,777,216,
+// >= 0.96 ms at 3.35 TB/s).  Design, one pass with the same look-back
 // (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back", NVIDIA NVR-2016-002):
 //   * a tile is kLbTile = 16,384 columns of one row; a block of 512
@@ -39,179 +68,29 @@
 //     t holds float4 t of each 2,048-column chunk, 128 B in flight per
 //     thread), scans each float4 serially, the eight chunks' float4
 //     totals with eight interleaved warp shuffle scans, and the 128
-//     (chunk, warp) totals in warp 0, four per lane serially and one warp
-//     scan: two barriers per tile.  Fewer columns per tile measured
-//     slower (4,096: 1.60 ms), more no faster (PERF.md);
-//   * tile ids come from an atomicAdd counter in row-major (row, tile)
-//     order, not from blockIdx: a tile then only waits on tiles that
-//     took their id earlier and are running, never on an unscheduled
-//     block;
-//   * each tile publishes one 64-bit status word, {flag in the high
-//     half: 0 none, 1 the tile's aggregate, 2 its inclusive prefix; the
-//     float's bits in the low half}, so a reader never sees a flag
-//     without its value; stores are st.release.gpu, loads ld.acquire.gpu;
-//     the aggregate goes out before the look-back, the prefix after it;
-//   * warp 0 looks back over up to 32 predecessors per step: it waits
-//     until none of them shows flag 0, takes the nearest one with a
-//     prefix, and adds that prefix and the aggregates in between (a warp
-//     sum); with no prefix in the window it adds all 32 aggregates and
-//     steps back;
-//   * outputs are __stcs float4s (nothing re-reads them);
+//     (chunk, warp) totals in warp 0 (`resolve_tile`): two barriers per
+//     tile.  Fewer columns per tile measured slower (4,096: 1.60 ms),
+//     more no faster (PERF.md);
 //   * one tile per block: a persistent block that loads its next tile
 //     during the look-back measured 2x slower, since each tile's
 //     aggregate then goes out a whole tile later and the look-backs
 //     behind it wait;
-//   * the status words and the counter are zeroed on the stream by the
-//     wrapper before each call (torch allocator memory, nothing static),
-//     so back-to-back calls and calls on two streams share no state.
+//   * outputs are __stcs float4s (nothing re-reads them).
 // Order of the float32 sum: serial within a float4, a tree within the
-// tile, a chain across the tiles of a row.  Where a look-back adds three
-// or more of its predecessors' words, the warp sum's order depends on
-// which of them had published their prefix, so two runs may round
-// differently (both within the bar; exact sums agree bitwise).  N % 4 != 0 or a base off 16
-// bytes takes masked scalar loads and stores.
+// tile, a chain across the tiles of a row (the serial look-back), so K4
+// too repeats bit for bit.  N % 4 != 0 or a base off 16 bytes takes
+// masked scalar loads and stores.
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRounds = 4;
-constexpr int kTile = kThreads * kRounds;  // columns per block
-constexpr int kMaxPe = 64;
-
-struct MuOrder {
-  int beta[kMaxPe];  // plane of member mu
-};
-
-// Exclusive block-wide scan of one float per thread; *total gets the
-// block sum.  Must be reached by every thread of the block.
-__device__ float block_exclusive_scan(float v, float* total) {
-  __shared__ float warp_tot[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    float y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) excl = 0.f;
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < kThreads / 32 ? warp_tot[lane] : 0.f;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      float y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kThreads / 32) warp_tot[lane] = w;  // inclusive
-  }
-  __syncthreads();
-  const float before = warp > 0 ? warp_tot[warp - 1] : 0.f;
-  *total = warp_tot[kThreads / 32 - 1];
-  __syncthreads();  // warp_tot is reused by the next call
-  return before + excl;
-}
-
-__global__ void __launch_bounds__(kThreads)
-tile_sum_kernel(const float* __restrict__ d, float* __restrict__ tot,
-                int pe, long long mp, int ntiles) {
-  const int c = blockIdx.y;
-  const int tile = blockIdx.x;
-  const float* dc = d + (size_t)c * pe * mp;
-  float s = 0.f;
-  const long long q0 = (long long)tile * kTile;
-  for (int r = 0; r < kRounds; ++r) {
-    const long long q = q0 + (long long)r * kThreads + threadIdx.x;
-    if (q < mp) {
-      for (int b = 0; b < pe; ++b) s += dc[(size_t)b * mp + q];
-    }
-  }
-  float total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) tot[(size_t)c * ntiles + tile] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-carry_scan_kernel(float* __restrict__ tot, int ntiles) {
-  float* t = tot + (size_t)blockIdx.x * ntiles;
-  float run = 0.f;
-  for (int base = 0; base < ntiles; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const float v = i < ntiles ? t[i] : 0.f;
-    float total;
-    const float excl = block_exclusive_scan(v, &total);
-    if (i < ntiles) t[i] = run + excl;
-    run += total;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const float* __restrict__ d, float* __restrict__ out,
-                 const float* __restrict__ carry, int pe, long long mp,
-                 int ntiles, const __grid_constant__ MuOrder ord) {
-  const int c = blockIdx.y;
-  const int tile = blockIdx.x;
-  const size_t off = (size_t)c * pe * mp;
-  const float* dc = d + off;
-  float* oc = out + off;
-  float run = carry[(size_t)c * ntiles + tile];
-  const long long q0 = (long long)tile * kTile;
-  for (int r = 0; r < kRounds; ++r) {
-    const long long q = q0 + (long long)r * kThreads + threadIdx.x;
-    const bool ok = q < mp;
-    float col = 0.f;
-    if (ok) {
-      for (int b = 0; b < pe; ++b) col += dc[(size_t)b * mp + q];
-    }
-    float total;
-    const float excl = block_exclusive_scan(col, &total);
-    if (ok) {
-      float acc = run + excl;
-      for (int m = 0; m < pe; ++m) {
-        const size_t i = (size_t)ord.beta[m] * mp + q;
-        acc += dc[i];
-        oc[i] = acc;
-      }
-    }
-    run += total;
-  }
-}
-
-// The three passes over d (C, pe, mp) with the planes' mu order.
-int scan_passes(const float* d, float* out, float* scratch, int C, int pe,
-                long long mp, const MuOrder& ord, cudaStream_t s) {
-  const long long nt = (mp + kTile - 1) / kTile;
-  if (nt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = static_cast<int>(nt);
-  dim3 grid(ntiles, C);
-  tile_sum_kernel<<<grid, kThreads, 0, s>>>(d, scratch, pe, mp, ntiles);
-  int err = imsim_last_error();
-  if (err) return err;
-  carry_scan_kernel<<<C, kThreads, 0, s>>>(scratch, ntiles);
-  err = imsim_last_error();
-  if (err) return err;
-  tile_scan_kernel<<<grid, kThreads, 0, s>>>(d, out, scratch, pe, mp,
-                                             ntiles, ord);
-  return imsim_last_error();
-}
-
-// ---- K4: one pass with decoupled look-back ------------------------------
-
-constexpr int kLbThreads = 512;
-constexpr int kLbVec = 8;                          // float4s per thread
-constexpr int kLbChunk = 4 * kLbThreads;           // columns per chunk
-constexpr int kLbTile = kLbVec * kLbChunk;         // 16,384 columns
-constexpr int kLbWarps = kLbThreads / 32;
-constexpr int kLbParts = kLbVec * kLbWarps;        // (chunk, warp) totals
-constexpr int kLbPartsPerLane = kLbParts / 32;
-static_assert(kLbParts % 32 == 0, "one warp scans the tile's parts");
+constexpr unsigned kAll = 0xffffffffu;
 constexpr unsigned long long kFlagAggregate = 1ull << 32;
 constexpr unsigned long long kFlagPrefix = 2ull << 32;
+
+// ---- the look-back, shared by K1 and K4 ---------------------------------
 
 __device__ __forceinline__ void publish(unsigned long long* p, float v,
                                         unsigned long long flag) {
@@ -231,29 +110,276 @@ __device__ __forceinline__ unsigned long long peek(
 }
 
 // The tile's exclusive prefix from its predecessors' status words st[0 ..
-// tile - 1]; run by one whole warp, tile > 0.
+// tile - 1]; run by one whole warp, tile > 0.  Lane l watches tile - 1 -
+// l.  Waits until the window holds an inclusive prefix P_j and every tile
+// after j has published its aggregate, then folds serially from P_j,
+// oldest first, so the result is the chained scan's value bit for bit.
 __device__ float look_back(const unsigned long long* st, int tile) {
   const int lane = threadIdx.x & 31;
-  float before = 0.f;
-  for (int last = tile - 1;; last -= 32) {
-    const int idx = last - lane;  // lane 0: the nearest predecessor
-    // past tile 0 (which always holds its prefix) reads as a zero prefix
-    unsigned long long word = idx >= 0 ? peek(st + idx) : kFlagPrefix;
-    while (__any_sync(0xffffffffu, (word >> 32) == 0)) {
-      if ((word >> 32) == 0) word = peek(st + idx);
-    }
-    const unsigned prefixes =
-        __ballot_sync(0xffffffffu, (word >> 32) == (kFlagPrefix >> 32));
-    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-    float v = lane <= stop ? __uint_as_float(static_cast<unsigned>(word))
-                           : 0.f;
+  const int idx = tile - 1 - lane;
+  // before the row's first tile: a zero prefix (never reached: tile 0
+  // always publishes its prefix, and lies nearer)
+  unsigned long long word = idx >= 0 ? peek(st + idx) : kFlagPrefix;
+  for (;;) {
+    const unsigned flag = static_cast<unsigned>(word >> 32);
+    const unsigned prefixes = __ballot_sync(kAll, flag == 2u);
+    const unsigned missing = __ballot_sync(kAll, flag == 0u);
+    if (prefixes) {
+      const int s = __ffs(prefixes) - 1;  // the nearest prefix
+      if ((missing & ((1u << s) - 1u)) == 0u) {
+        const float v = __uint_as_float(static_cast<unsigned>(word));
+        float acc = 0.f;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    before += v;
-    if (prefixes) break;
+        for (int l = 31; l >= 0; --l) {
+          const float w = __shfl_sync(kAll, v, l);
+          if (l == s) {
+            acc = w;
+          } else if (l < s) {
+            acc += w;
+          }
+        }
+        return acc;
+      }
+    }
+    if (flag != 2u) word = peek(st + idx);
   }
-  return before;
 }
+
+// Warp 0 of a tile: part[0 .. NP) holds the tile's partial totals in
+// column order.  Scans them, publishes the tile's aggregate, looks back
+// for its exclusive prefix, publishes its inclusive prefix fl(excl +
+// aggregate) and replaces each part by the row's sum before it.
+template <int NP>
+__device__ void resolve_tile(float* part, unsigned long long* st,
+                             int tile) {
+  constexpr int kPerLane = (NP + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  float q[kPerLane];  // lane l: parts l * kPerLane + e, inclusive
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int i = lane * kPerLane + e;
+    q[e] = i < NP ? part[i] : 0.f;
+    if (e > 0) q[e] += q[e - 1];
+  }
+  float p = q[kPerLane - 1];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(kAll, p, o);
+    if (lane >= o) p += y;
+  }
+  const float aggregate = __shfl_sync(kAll, p, 31);
+  float within = __shfl_up_sync(kAll, p, 1);
+  if (lane == 0) within = 0.f;
+  float before = 0.f;
+  if (tile > 0) {
+    if (lane == 0) publish(st + tile, aggregate, kFlagAggregate);
+    before = look_back(st, tile);
+  }
+  if (lane == 0) publish(st + tile, before + aggregate, kFlagPrefix);
+  const float head = before + within;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int i = lane * kPerLane + e;
+    if (i < NP) part[i] = e > 0 ? head + q[e - 1] : head;
+  }
+}
+
+// ---- K1: the slot-order scan ---------------------------------------------
+
+constexpr int kMaxPe = 64;
+constexpr int kSlotThreads = 256;
+constexpr int kSlotWarps = kSlotThreads / 32;
+constexpr int kSlotTileFloats = 16384;  // pe planes x W columns, at most
+constexpr int kSlotLoads = kSlotTileFloats / 4 / kSlotThreads;  // float4s
+constexpr int kSlotLoadBatch = 8;       // float4 loads in flight a thread
+static_assert(kSlotLoads % kSlotLoadBatch == 0, "whole load batches");
+
+struct MuOrder {
+  int beta[kMaxPe];  // plane of member mu
+};
+
+// Columns per tile: a multiple of 128 with pe * W <= kSlotTileFloats.
+__host__ __device__ inline int slot_tile_columns(int pe) {
+  const int w = 128 * (kSlotTileFloats / 128 / pe);
+  return w > 128 ? w : 128;
+}
+
+// ROUNDS: quads a thread owns, at least ceil(W / 4 / kSlotThreads).
+template <bool VEC, int ROUNDS>
+__global__ void __launch_bounds__(kSlotThreads)
+slot_scan_kernel(const float* __restrict__ d, float* __restrict__ out,
+                 int pe, long long mp, int width, int ntr,
+                 unsigned long long* status, unsigned long long* counter,
+                 const __grid_constant__ MuOrder ord) {
+  extern __shared__ float4 tile_s[];  // plane b, quad k: [b * quads + k]
+  __shared__ int tile_id;
+  __shared__ float part[ROUNDS * kSlotWarps];  // (round, warp) totals
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) tile_id = static_cast<int>(atomicAdd(counter, 1ull));
+  __syncthreads();
+  const int row = tile_id / ntr;
+  const int tile = tile_id - row * ntr;
+  const size_t plane0 = static_cast<size_t>(row) * pe * mp;
+  const float* dr = d + plane0;
+  float* orow = out + plane0;
+  const long long q0 = static_cast<long long>(tile) * width;
+  const int quads = width >> 2;
+  const int nf = pe * quads;  // float4s in the tile, <= kSlotLoads * 256
+
+  // ---- load: float4 f = u * 256 + t of the tile, zeros past the row
+#pragma unroll
+  for (int u0 = 0; u0 < kSlotLoads; u0 += kSlotLoadBatch) {
+    float4 v[kSlotLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kSlotLoadBatch; ++u) {
+      const int f = (u0 + u) * kSlotThreads + t;
+      const int b = f / quads;
+      const long long q = q0 + 4 * (f - b * quads);
+      const float* src = dr + static_cast<size_t>(b) * mp + q;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (f < nf) {
+        if (VEC) {
+          if (q < mp) v[u] = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          if (q < mp) v[u].x = __ldg(src);
+          if (q + 1 < mp) v[u].y = __ldg(src + 1);
+          if (q + 2 < mp) v[u].z = __ldg(src + 2);
+          if (q + 3 < mp) v[u].w = __ldg(src + 3);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSlotLoadBatch; ++u) {
+      const int f = (u0 + u) * kSlotThreads + t;
+      if (f < nf) tile_s[f] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // ---- column totals, the quad's serial scan, the warps' scans
+  float4 col[ROUNDS];  // inclusive across the quad's four columns
+  float s[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int k = r * kSlotThreads + t;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k < quads) {
+      for (int b = 0; b < pe; ++b) {
+        const float4 x = tile_s[b * quads + k];
+        a.x += x.x;
+        a.y += x.y;
+        a.z += x.z;
+        a.w += x.w;
+      }
+    }
+    a.y += a.x;
+    a.z += a.y;
+    a.w += a.z;
+    col[r] = a;
+    s[r] = a.w;
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const float y = __shfl_up_sync(kAll, s[r], o);
+      if (lane >= o) s[r] += y;
+    }
+  }
+  float excl[ROUNDS];  // the lanes before this one, per round
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    excl[r] = __shfl_up_sync(kAll, s[r], 1);
+    if (lane == 0) excl[r] = 0.f;
+    if (lane == 31) part[r * kSlotWarps + warp] = s[r];
+  }
+  __syncthreads();
+
+  // ---- warp 0: the parts' prefixes, the tile's status, the look-back
+  if (warp == 0) {
+    resolve_tile<ROUNDS * kSlotWarps>(
+        part, status + static_cast<size_t>(row) * ntr, tile);
+  }
+  __syncthreads();
+
+  // ---- outputs: each column's planes in mu order, one store each
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int k = r * kSlotThreads + t;
+    const long long q = q0 + 4 * k;
+    if (k >= quads || q >= mp) continue;
+    const float pre = part[r * kSlotWarps + warp] + excl[r];
+    float4 acc = make_float4(pre, pre + col[r].x, pre + col[r].y,
+                             pre + col[r].z);
+    for (int m = 0; m < pe; ++m) {
+      const int b = ord.beta[m];
+      const float4 x = tile_s[b * quads + k];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+      float* dst = orow + static_cast<size_t>(b) * mp + q;
+      if (VEC) {
+        __stcs(reinterpret_cast<float4*>(dst), acc);
+      } else {
+        __stcs(dst, acc.x);
+        if (q + 1 < mp) __stcs(dst + 1, acc.y);
+        if (q + 2 < mp) __stcs(dst + 2, acc.z);
+        if (q + 3 < mp) __stcs(dst + 3, acc.w);
+      }
+    }
+  }
+}
+
+template <bool VEC, int ROUNDS>
+int launch_slot_scan(const float* d, float* out, int C, int pe, long long mp,
+                     int width, int ntr, unsigned long long* status,
+                     const MuOrder& ord, cudaStream_t s) {
+  auto kernel = slot_scan_kernel<VEC, ROUNDS>;
+  // the 64 KB tile needs the opt-in above 48 KB (set on the current
+  // device, so every launch sets it)
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSlotTileFloats * static_cast<int>(sizeof(float)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = pe * width * static_cast<int>(sizeof(float));
+  const unsigned blocks = static_cast<unsigned>(ntr) * C;
+  unsigned long long* counter = status + static_cast<size_t>(ntr) * C;
+  kernel<<<blocks, kSlotThreads, smem, s>>>(d, out, pe, mp, width, ntr,
+                                            status, counter, ord);
+  return imsim_last_error();
+}
+
+template <bool VEC>
+int slot_scan(const float* d, float* out, int C, int pe, long long mp,
+              unsigned long long* status, const MuOrder& ord,
+              cudaStream_t s) {
+  const int width = slot_tile_columns(pe);
+  const int ntr = static_cast<int>((mp + width - 1) / width);
+  const int rounds = (width / 4 + kSlotThreads - 1) / kSlotThreads;
+  if (rounds <= 1) {
+    return launch_slot_scan<VEC, 1>(d, out, C, pe, mp, width, ntr, status,
+                                    ord, s);
+  }
+  if (rounds <= 4) {
+    return launch_slot_scan<VEC, 4>(d, out, C, pe, mp, width, ntr, status,
+                                    ord, s);
+  }
+  return launch_slot_scan<VEC, 16>(d, out, C, pe, mp, width, ntr, status,
+                                   ord, s);
+}
+
+// ---- K4: the lane scan ---------------------------------------------------
+
+constexpr int kLbThreads = 512;
+constexpr int kLbVec = 8;                          // float4s per thread
+constexpr int kLbChunk = 4 * kLbThreads;           // columns per chunk
+constexpr int kLbTile = kLbVec * kLbChunk;         // 16,384 columns
+constexpr int kLbWarps = kLbThreads / 32;
+constexpr int kLbParts = kLbVec * kLbWarps;        // (chunk, warp) totals
+static_assert(kLbParts % 32 == 0, "one warp scans the tile's parts");
 
 template <bool VEC>
 __global__ void __launch_bounds__(kLbThreads)
@@ -302,14 +428,14 @@ lookback_scan_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int o = 1; o < 32; o <<= 1) {
 #pragma unroll
     for (int u = 0; u < kLbVec; ++u) {
-      const float y = __shfl_up_sync(0xffffffffu, s[u], o);
+      const float y = __shfl_up_sync(kAll, s[u], o);
       if (lane >= o) s[u] += y;
     }
   }
   float excl[kLbVec];  // the lanes before this one, per chunk
 #pragma unroll
   for (int u = 0; u < kLbVec; ++u) {
-    excl[u] = __shfl_up_sync(0xffffffffu, s[u], 1);
+    excl[u] = __shfl_up_sync(kAll, s[u], 1);
     if (lane == 0) excl[u] = 0.f;
     if (lane == 31) part[u * kLbWarps + warp] = s[u];
   }
@@ -317,36 +443,8 @@ lookback_scan_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   // ---- warp 0: the parts' prefixes, the tile's status, the look-back
   if (warp == 0) {
-    // lane l takes kLbPartsPerLane consecutive parts (column order)
-    float q[kLbPartsPerLane];
-#pragma unroll
-    for (int e = 0; e < kLbPartsPerLane; ++e) {
-      q[e] = part[lane * kLbPartsPerLane + e];
-      if (e > 0) q[e] += q[e - 1];
-    }
-    float p = q[kLbPartsPerLane - 1];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, p, o);
-      if (lane >= o) p += y;
-    }
-    const float aggregate = __shfl_sync(0xffffffffu, p, 31);
-    float within = __shfl_up_sync(0xffffffffu, p, 1);
-    if (lane == 0) within = 0.f;
-    unsigned long long* st = status + static_cast<size_t>(row) * ntr;
-    float before = 0.f;
-    if (tile == 0) {
-      if (lane == 0) publish(st, aggregate, kFlagPrefix);
-    } else {
-      if (lane == 0) publish(st + tile, aggregate, kFlagAggregate);
-      before = look_back(st, tile);
-      if (lane == 0) publish(st + tile, before + aggregate, kFlagPrefix);
-    }
-    const float head = before + within;
-#pragma unroll
-    for (int e = 0; e < kLbPartsPerLane; ++e) {
-      part[lane * kLbPartsPerLane + e] = e > 0 ? head + q[e - 1] : head;
-    }
+    resolve_tile<kLbParts>(part, status + static_cast<size_t>(row) * ntr,
+                           tile);
   }
   __syncthreads();
 
@@ -368,23 +466,36 @@ lookback_scan_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-
 }  // namespace
 
-IMSIM_API int imsim_scan_tile_columns() { return kTile; }
+// K1: the status words (one a tile, then the tile counter) that
+// imsim_scan_slot_prefix needs for d (C, pe, mp).
+IMSIM_API long long imsim_scan_slot_status_words(int C, int pe,
+                                                 long long mp) {
+  if (C <= 0 || mp <= 0 || pe <= 0 || pe > kMaxPe) return 1;
+  const int width = slot_tile_columns(pe);
+  return static_cast<long long>(C) * ((mp + width - 1) / width) + 1;
+}
 
+// K1: ordinal-order prefix sum of d (C, pe, mp); mu_to_beta[m] is the
+// plane of member m; status holds imsim_scan_slot_status_words(C, pe,
+// mp) zeroed 64-bit words.
 IMSIM_API int imsim_scan_slot_prefix(const float* d, float* out,
-                                     float* scratch, int C, int pe,
-                                     long long mp, const int* mu_to_beta,
-                                     void* stream) {
+                                     unsigned long long* status, int C,
+                                     int pe, long long mp,
+                                     const int* mu_to_beta, void* stream) {
   if (C <= 0 || mp <= 0) return 0;
-  if (pe <= 0 || pe > kMaxPe || C > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (pe <= 0 || pe > kMaxPe) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ntr = (mp + slot_tile_columns(pe) - 1) /
+                        slot_tile_columns(pe);
+  if (ntr * C > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   MuOrder ord;
   for (int m = 0; m < kMaxPe; ++m) ord.beta[m] = m < pe ? mu_to_beta[m] : 0;
-  return scan_passes(d, out, scratch, C, pe, mp, ord,
-                     static_cast<cudaStream_t>(stream));
+  const bool vec = mp % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? slot_scan<true>(d, out, C, pe, mp, status, ord, s)
+             : slot_scan<false>(d, out, C, pe, mp, status, ord, s);
 }
 
 // K4: inclusive prefix sum along axis 1 of x (C, N), any N.  status holds

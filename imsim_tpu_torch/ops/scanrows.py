@@ -7,10 +7,11 @@ The pooled row materialization scatters each object's parameter delta
 into the two-level slot layout d (C, pe, mp): plane beta, lane q holds
 photon ordinal j = pe*q + mu(beta) (photon_pooling.member_offsets).  The
 per-photon rows are the prefix sum of d in ORDINAL order.  The CUDA
-kernel (csrc/scanrows.cu, three passes) walks that order directly; the
-plain twin permutes planes into ordinal order, runs one cumsum and
-permutes back.  K4 is a one-pass scan with decoupled look-back in the
-same source; its plain twin is torch.cumsum along axis 1.
+kernel (csrc/scanrows.cu, one pass with a decoupled look-back whose bits
+repeat) walks that order directly; the plain twin permutes planes into
+ordinal order, runs one cumsum and permutes back.  K4 is a one-pass
+scan with the same look-back in the same source; its plain twin is
+torch.cumsum along axis 1.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def scan_slot_prefix_plain(d: torch.Tensor, pair: int,
 
 def scan_slot_prefix_cuda(d: torch.Tensor, pair: int,
                           share: int) -> torch.Tensor:
-    """Launch the CUDA kernel on d (C, pe, mp) float32."""
+    """Launch the one-pass CUDA kernel on d (C, pe, mp) float32."""
     C, pe, mp = d.shape
     _build.require(d, "d")
     if pe > 64:
@@ -81,11 +82,17 @@ def scan_slot_prefix_cuda(d: torch.Tensor, pair: int,
                                             ctypes.c_void_p,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    nwords = lib.imsim_scan_slot_status_words
+    nwords.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    nwords.restype = ctypes.c_longlong
     out = torch.empty_like(d)
-    scratch = _scan_scratch(C, mp, d.device)
+    # one status word per tile, then the tile counter: zeroed on the
+    # stream for every call, so no two calls share them
+    words = torch.zeros(nwords(C, pe, mp), dtype=torch.int64,
+                        device=d.device)
     order = np.asarray(beta_order(pair, share), np.int32)
-    status = fn(d.data_ptr(), out.data_ptr(), scratch.data_ptr(), C, pe,
-                mp, order.ctypes.data, _build.stream_ptr(d))
+    status = fn(d.data_ptr(), out.data_ptr(), words.data_ptr(), C, pe, mp,
+                order.ctypes.data, _build.stream_ptr(d))
     _build.check(status, "scan_slot_prefix")
     _build.count_launch("scan_slot_prefix")
     return out
@@ -103,12 +110,6 @@ def scan_slot_prefix(d: torch.Tensor, pair: int, share: int) -> torch.Tensor:
     if d.device.type != "cpu":
         raise ValueError(f"scan_slot_prefix: unsupported device {d.device}")
     return scan_slot_prefix_plain(d, pair, share)
-
-
-def _scan_scratch(C: int, N: int, device) -> torch.Tensor:
-    """Per-tile totals of K1's three passes: (C, ceil(N / tile))."""
-    ntiles = max(1, -(-N // _build.library().imsim_scan_tile_columns()))
-    return torch.empty((C, ntiles), dtype=torch.float32, device=device)
 
 
 def scan_lanes_plain(x: torch.Tensor) -> torch.Tensor:

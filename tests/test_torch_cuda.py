@@ -29,11 +29,13 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pair,share,mp", [(1, 1, 5000), (4, 4, 70_001),
-                                           (4, 8, 3000)])
+@pytest.mark.parametrize("pair,share,mp", [
+    (1, 1, 5000), (4, 4, 70_001), (4, 8, 3000),
+    # pe = 1, 2, 64: tiles of 16,384, 8,192 and 256 columns, ragged mp
+    (1, 1, 100_003), (2, 1, 100_003), (8, 8, 100_003), (8, 8, 65_536)])
 def test_scan_slot_prefix_kernel(cuda, pair, share, mp):
-    """Any mp (ragged tail included): f32 prefix sums of 0.01-scale
-    deltas, 2000 nonzero per column set -> 1e-5 absolute."""
+    """Any mp (ragged tail included) and any pe <= 64: f32 prefix sums of
+    0.01-scale deltas, 2000 nonzero per column set -> 1e-5 absolute."""
     g = torch.Generator(device=cuda).manual_seed(1)
     pe = pair * share
     d = torch.zeros((7, pe, mp), device=cuda)
@@ -46,6 +48,98 @@ def test_scan_slot_prefix_kernel(cuda, pair, share, mp):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["scan_slot_prefix"] == n0 + 1
     assert float((got - want).abs().max()) < 1e-5
+
+
+def _slot_deltas(cuda, C, pair, share, mp, n_obj, seed):
+    """d (C, pe, mp) with n_obj standard normal deltas a row, scattered
+    over the row's slots."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pe = pair * share
+    d = torch.zeros((C, pe * mp), device=cuda)
+    idx = torch.randint(0, pe * mp, (n_obj,), generator=g, device=cuda)
+    d[:, idx] = torch.randn((C, n_obj), generator=g, device=cuda)
+    return d.reshape(C, pe, mp)
+
+
+def _slot_row_bar(want, n_obj):
+    """sqrt(n_obj) float32 ulps of each row's scale."""
+    return _row_bar(want.reshape(want.shape[0], -1), n_obj)
+
+
+# K1's tile at pe = 16: 1,024 columns.  Long rows: 2,048 whole tiles, and
+# 1,999 with a ragged, odd tail (mp % 4 != 0: the scalar path)
+K1_TILE_16 = 1024
+K1_LONG = (K1_TILE_16 * 2048, K1_TILE_16 * 1999 + 1235)
+
+
+@pytest.mark.cuda
+def test_scan_slot_prefix_repeats_bitwise(cuda):
+    """The look-back folds its predecessors serially, oldest first, so K1
+    repeats bit for bit: five calls back to back and two calls on two
+    streams all equal the first call bitwise (on 100,000 normal deltas a
+    row, whose sums round in every tile)."""
+    d = _slot_deltas(cuda, 24, 4, 4, K1_TILE_16 * 700 + 64, 100_000, 5)
+    first = scanrows.scan_slot_prefix(d, 4, 4)
+    again = [scanrows.scan_slot_prefix(d, 4, 4) for _ in range(5)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            again.append(scanrows.scan_slot_prefix(d, 4, 4))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for i, out in enumerate(again):
+        assert torch.equal(out, first), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 24])
+@pytest.mark.parametrize("mp", K1_LONG)
+def test_scan_slot_prefix_long_lookback_chain(cuda, C, mp):
+    """K1 over rows of 2,000+ tiles (a long look-back chain): 2000
+    standard normal deltas a row, each row within sqrt(2000) ulps of its
+    scale of the plain twin, one launch."""
+    d = _slot_deltas(cuda, C, 4, 4, mp, 2000, mp % 1000 + C)
+    n0 = _build.LAUNCHES["scan_slot_prefix"]
+    got = scanrows.scan_slot_prefix_cuda(d, 4, 4)
+    want = scanrows.scan_slot_prefix_plain(d, 4, 4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["scan_slot_prefix"] == n0 + 1
+    gap = (got - want).reshape(C, -1).abs().amax(dim=1).cpu().numpy()
+    assert (gap <= _slot_row_bar(want, 2000)).all(), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 24])
+@pytest.mark.parametrize("mp", [K1_TILE_16 * 500, K1_TILE_16 * 500 - 3])
+def test_scan_slot_prefix_constant_exact(cuda, C, mp):
+    """Constant rows of small integers over 500 tiles (whole, and a ragged
+    odd tail): every partial sum is an integer below 2^24, exact in any
+    order, so K1 equals the prefix in ordinal order bitwise."""
+    pair, share = 4, 4
+    pe = pair * share
+    v = torch.arange(C, device=cuda, dtype=torch.float32) % 2 + 1
+    d = v[:, None, None].expand(C, pe, mp).contiguous()
+    got = scanrows.scan_slot_prefix_cuda(d, pair, share)
+    beta = scanrows.beta_order(pair, share)
+    mu = torch.empty(pe, device=cuda)
+    mu[list(beta)] = torch.arange(pe, device=cuda, dtype=torch.float32)
+    q = torch.arange(mp, device=cuda, dtype=torch.float32)
+    want = v[:, None, None] * (pe * q[None, None, :] + mu[None, :, None]
+                               + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_scan_slot_prefix_refuses_wide_layouts(cuda):
+    """pe > 64 raises before any launch."""
+    d = torch.zeros((2, 65, 128), device=cuda)
+    n0 = _build.LAUNCHES["scan_slot_prefix"]
+    with pytest.raises(ValueError):
+        scanrows.scan_slot_prefix(d, 65, 1)
+    assert _build.LAUNCHES["scan_slot_prefix"] == n0
 
 
 @pytest.mark.cuda
@@ -314,6 +408,25 @@ def test_scan_lanes_back_to_back_and_two_streams(cuda):
     torch.cuda.synchronize()
     for v, out in zip((1, 2, 3, 4), got):
         assert torch.equal(out, (v * ramp).expand(C, N)), v
+
+
+@pytest.mark.cuda
+def test_scan_lanes_repeats_bitwise(cuda):
+    """K4 shares K1's serial look-back, so its bits repeat too: five
+    calls back to back and one on a second stream equal the first."""
+    x = torch.randn((24, K4_TILE * 300 + 8),
+                    generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda)
+    first = scanrows.scan_lanes_cuda(x)
+    again = [scanrows.scan_lanes_cuda(x) for _ in range(5)]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        again.append(scanrows.scan_lanes_cuda(x))
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for i, out in enumerate(again):
+        assert torch.equal(out, first), i
 
 
 def _outputs(x):

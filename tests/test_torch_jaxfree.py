@@ -94,6 +94,8 @@ def test_port_imports_and_renders_without_jax():
     # the CPU rehearsal runs the plain twins: no launches, no gaps
     assert all(row["launches"] == 0 and row["max_abs_err"] == 0
                for row in report["kernels"][3:])
+    # gate (ad): K1 repeats bit for bit (the plain twin here)
+    assert "[K1] (ad) K1 repeats bit for bit: 5 of 5 calls" in res.stdout
     # the probe phase ran every probe_rows case
     assert sum(ln.startswith("[probes] ") and ln.endswith(" ms")
                for ln in lines) == 13

@@ -1,10 +1,13 @@
 """K1's plain twin and the pooled bookkeeping around it against the JAX
 package: scan_slot_prefix (Pallas, interpret mode), materialize_rows,
 the photon->object map, and the batch sizing (align_batch, slot_blkq,
-pooled_plan, pick_nbatch, member_offsets)."""
+pooled_plan, pick_nbatch, member_offsets); and the serial look-back
+that K1 and K4 rest on (csrc/scanrows.cu), replayed in numpy float32."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -128,3 +131,73 @@ def test_scan_slot_prefix_rejects_bad_layout():
     d = torch.zeros((2, 4, 8))
     with pytest.raises(ValueError):
         TSR.scan_slot_prefix(d, 4, 4)
+
+
+# the look-back window of csrc/scanrows.cu (one warp's lanes)
+LOOKBACK_WINDOW = 32
+
+
+def _chained_prefixes(aggs):
+    """The chained scan of the tiles' aggregates: P_i = fl(P_{i-1} + a_i),
+    P_{-1} = 0, in float32."""
+    out = np.empty_like(aggs)
+    acc = np.float32(0.0)
+    for i, a in enumerate(aggs):
+        acc = np.float32(acc + a)
+        out[i] = acc
+    return out
+
+
+def _replay_lookback(aggs, pick):
+    """Replay csrc/scanrows.cu's look-back over the tiles of one row in an
+    order that `pick(n)` (an index below n) chooses step by step: each step
+    either publishes a waiting tile's aggregate or completes the look-back
+    of a tile whose window holds an inclusive prefix P_j with every tile
+    after j published.  Completing folds serially, oldest first:
+    excl = fl(...fl(P_j + a_{j+1})... + a_{i-1}), P_i = fl(excl + a_i).
+    Returns the published prefixes."""
+    n = len(aggs)
+    flag = np.zeros(n, np.int8)         # 0 none, 1 aggregate, 2 prefix
+    word = np.zeros(n, np.float32)
+    while (flag < 2).any():
+        ready = []
+        for i in range(n):
+            if flag[i] == 0 and i > 0:
+                ready.append(("aggregate", i, None))
+            if flag[i] == 2 or (i > 0 and flag[i] == 0):
+                continue
+            lo = max(i - LOOKBACK_WINDOW, 0)
+            near = [j for j in range(i - 1, lo - 1, -1) if flag[j] == 2]
+            if i == 0:
+                ready.append(("prefix", 0, None))
+            elif near and (flag[near[0] + 1:i] > 0).all():
+                ready.append(("prefix", i, near[0]))
+        kind, i, j = ready[pick(len(ready))]
+        if kind == "aggregate":
+            flag[i], word[i] = 1, aggs[i]
+            continue
+        excl = np.float32(0.0)
+        if j is not None:
+            excl = word[j]
+            for k in range(j + 1, i):
+                excl = np.float32(excl + word[k])
+        flag[i], word[i] = 2, np.float32(excl + aggs[i])
+    return word
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(aggs=st.lists(st.floats(width=32, allow_nan=False,
+                               allow_infinity=False),
+                     min_size=1, max_size=90),
+       data=st.data())
+def test_serial_lookback_gives_the_chained_scans_bits(aggs, data):
+    """Whichever predecessors have published their inclusive prefix when
+    a tile looks back, folding serially from the nearest one gives every
+    tile the chained scan's prefix bit for bit, so K1's (and K4's) output
+    cannot depend on the order in which tiles ran."""
+    aggs = np.asarray(aggs, np.float32)
+    got = _replay_lookback(
+        aggs, lambda n: data.draw(st.integers(0, n - 1)))
+    want = _chained_prefixes(aggs)
+    assert (got.view(np.uint32) == want.view(np.uint32)).all()
+
