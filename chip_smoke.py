@@ -134,6 +134,7 @@ The script needs CUDA and refuses to run without it.  `run()` takes a
 device and a size so the CPU tests can rehearse the same phases at a
 tiny size with the kernels' plain twins.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -2507,12 +2508,14 @@ def run(device, small: bool = False) -> dict:
                                                        modes["image"])
     del state
     paths["itl_ccd"] = phase_pointing(device, small)["launches"]
-    paths["instcat_ccd"] = phase_instcat(device, small)
+    with _traced():
+        paths["instcat_ccd"] = phase_instcat(device, small)
     root = visit_root(small)
     try:
-        paths["visit_yaml"], wl = phase_visit(device, small, root)
-        paths["skycat_ccd"], paths["skycat_native"] = phase_skycat(device,
-                                                                   small)
+        with _traced():
+            paths["visit_yaml"], wl = phase_visit(device, small, root)
+            paths["skycat_ccd"], paths["skycat_native"] = phase_skycat(
+                device, small)
         paths.update(phase_mesh(device, small, root, wl))
     finally:
         import shutil
@@ -2524,6 +2527,21 @@ def run(device, small: bool = False) -> dict:
     log("[launches] per path: " + json.dumps(
         {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}))
     return {"kernels": rows}
+
+
+@contextlib.contextmanager
+def _traced():
+    """Tracing on (imsim_tpu_torch.utils.trace) for phases that print
+    the runner's step seconds: its steps synchronise the card only while
+    tracing is on, so that the seconds hold their device work."""
+    from imsim_tpu_torch.utils import trace
+
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        trace.reset()
 
 
 def main() -> int:

@@ -1,9 +1,10 @@
 """CLI: `python -m imsim_tpu_torch user.yaml [key.path=value ...]`
 (imsim_tpu/__main__.py counterpart): run a visit config with dotted-key
 overrides on the card, or on `--device cpu`.  Flags: -v / -q logging,
---profile (per-detector wall time and peak RSS), --visits (opsim visit
-ids, `a:b` or `a,b,...`, rendered in turn), -n / -j (split the visit's
-detectors over N jobs; this is job J).
+--profile (per-detector wall time and peak RSS), --trace PATH (the
+run's spans and counters, utils.trace, as Chrome-trace JSON), --visits
+(opsim visit ids, `a:b` or `a,b,...`, rendered in turn), -n / -j (split
+the visit's detectors over N jobs; this is job J).
 
 Several ranks: `torchrun --nproc-per-node N -m imsim_tpu_torch user.yaml
 output.mesh="{ccd: C, phot: M}"` (C x M <= N); with WORLD_SIZE > 1 the
@@ -31,6 +32,11 @@ def main(argv=None, on_result=None) -> int:
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="log per-detector wall time and peak RSS")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the run's spans and counters and write "
+                        "them to PATH (.rank<r> after it with several "
+                        "ranks) as Chrome-trace JSON (timestamps on "
+                        "torch.profiler's clock)")
     p.add_argument("--visits", default=None,
                    help="opsim visit ids to render in turn: a,b,... or "
                         "a:b (b excluded); each sets "
@@ -59,11 +65,21 @@ def main(argv=None, on_result=None) -> int:
             group = False      # the caller's group: the caller ends it
         else:
             init_group(args.device)
+    if args.trace:
+        from .utils import trace
+
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            args.trace += f".rank{os.environ.get('RANK', '0')}"
+        trace.reset()
+        trace.enable()
     try:
         _run(args, logger, on_result)
     finally:
         if group:
             dist.destroy_process_group()
+        if args.trace:
+            trace.disable()
+            trace.write_chrome_trace(args.trace)
     return 0
 
 

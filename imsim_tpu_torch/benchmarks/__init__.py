@@ -7,7 +7,7 @@
 
 and the port's own measurements:
 
-  profile_render  warm s/CCD and device idle share of the render
+  profile_render  warm s/CCD of the render and its spans' seconds
   sass_stats      static SASS instruction mix of the built kernels
   chain_random    K2 against its twin on uniformly random photons
 

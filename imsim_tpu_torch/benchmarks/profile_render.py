@@ -1,16 +1,20 @@
-"""Warm stage times and device idle share of the whole bench CCD.
+"""Warm stage times and the span store's seconds of the whole bench CCD.
 
 Runs the bench workload (`_util.workload`, the scene chip_smoke.py
 drives) through the CCD's device stages: `render_ccd_pooled` with the
 FFT branch (the bright stars with diffraction spikes at the full well),
 `add_sky_and_noise` and the readout chain to raw amps.  One cold run,
 `--warm` timed warm runs (host clock around each stage, ending in
-torch.cuda.synchronize()), then one warm run under torch.profiler: its
-device busy time is the sum of the device time of every kernel, copy and
-fill (one stream, so they do not overlap), its idle share
-1 - busy / wall.  The FFT pass runs inside the render; it is also timed
-alone (the same call on an empty frame) and profiled alone, with its
-largest device kernels.
+torch.cuda.synchronize()), then one warm run with tracing on
+(imsim_tpu_torch.utils.trace): the host and device seconds of each span
+name, summed (the render's `render.fft`, `render.plan`, `render.batch`
+with `render.rows`, `render.shoot` and `render.sensor`; the stages as
+`ccd.render`, `ccd.sky`, `ccd.cosmic_rays`, `ccd.readout`), and the
+binner's counters.  Device seconds come from CUDA events on the stream,
+so they hold the idle time inside a span; the kernels by name are the
+benchmark's (`portbench`, `--trace 1`).  The FFT pass runs inside the
+render; it is also timed alone (the same call on an empty frame) and
+traced alone.
 
 --analytic runs the same bench catalog through the analytic PSF
 (`_util.analytic_workload`: render without optics, sky, cosmic rays,
@@ -18,7 +22,7 @@ readout); --det NAME renders detector NAME on the optics path from the
 state `convert.build_ccd_state` builds at the bench pointing (the
 runner's silicon; the bench catalog's draws over that CCD's frame; the
 host seconds of the build reported), as chip_smoke's phase 9 does for
-R10_S11; --flats times and profiles the flats of chip_smoke's phase 7
+R10_S11; --flats times and traces the flats of chip_smoke's phase 7
 (`build_flat` at the runner's defaults, `build_flat_photons` at the cut)
 instead of a CCD; --instcat renders chip_smoke phase 10's instance-catalog
 CCD through the runner's per-CCD path (config/runner.render_one_ccd), with
@@ -31,36 +35,37 @@ Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
 
 import torch
 
-
-def _device_events(prof) -> list:
-    """(name, microseconds, count) of the device-side events (kernels,
-    copies, fills) of a profile, largest first; host-side ops, which
-    also carry their kernels' time, are left out so nothing counts
-    twice."""
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == cuda]
-    return sorted(rows, key=lambda r: -r[1])
+from ..utils import trace
 
 
-def _profiled(fn) -> dict:
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+def _traced(fn) -> dict:
+    """fn() -> wall seconds, run once with tracing on: the wall, each
+    span name's count and summed host and device seconds, and each
+    counter's total."""
+    trace.reset()
+    trace.enable()
+    try:
         wall = fn()
-    rows = _device_events(prof)
-    busy = sum(r[1] for r in rows) * 1e-6
-    return dict(wall_s=wall, device_busy_s=busy,
-                device_events=sum(r[2] for r in rows),
-                idle_share=1.0 - busy / wall,
-                top_kernels=[dict(name=n[:90], ms=us * 1e-3, count=c)
-                             for n, us, c in rows[:8]])
+    finally:
+        trace.disable()
+    spans, counters = {}, {}
+    for s in trace.spans():
+        row = spans.setdefault(s["name"], dict(count=0, host_s=0.0,
+                                               device_s=0.0))
+        row["count"] += 1
+        row["host_s"] += s["host_s"]
+        row["device_s"] += s["device_s"] or 0.0
+    for c in trace.counters():
+        counters[c["name"]] = counters.get(c["name"], 0.0) + c["value"]
+    trace.reset()
+    return dict(wall_s=wall, spans=spans, counters=counters)
 
 
 def _smi() -> str:
@@ -70,10 +75,14 @@ def _smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _timed(fn):
+def _timed(fn, span=None):
+    """(fn(), host seconds to the card's end of it); with `span`, also
+    that span on the card."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn()
+    with trace.span(span, device="cuda") if span \
+            else contextlib.nullcontext():
+        out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -121,17 +130,19 @@ def main(warm: int = 3, analytic: bool = False, det: str = None) -> dict:
             state.sk_table, profiles=state.profiles, spikes=spikes)
 
     def ccd():
-        (image, _, _), t_r = _timed(render)
+        (image, _, _), t_r = _timed(render, "ccd.render")
         eimage, t_s = _timed(lambda: add_sky_and_noise(
             stream(0, "sky", device=device), image, state.sky_level,
             (0.0, 0.0, 1.0), state.vig_coarse, cfg.pixel_scale,
-            vig_step=state.vig_step))
+            vig_step=state.vig_step), "ccd.sky")
         t = dict(render=t_r, sky=t_s)
         if analytic:
             eimage, t["cosmic_rays"] = _timed(lambda: paint_cosmic_rays(
-                eimage, cfg.exptime, 189, ccd_rate=CR_RATE_DEFAULT))
+                eimage, cfg.exptime, 189, ccd_rate=CR_RATE_DEFAULT),
+                "ccd.cosmic_rays")
         _, t["readout"] = _timed(lambda: state.readout.chain(
-            stream(0, "readout", device=device), eimage, cfg.exptime))
+            stream(0, "readout", device=device), eimage, cfg.exptime),
+            "ccd.readout")
         t["ccd"] = sum(t.values())
         return t
 
@@ -146,21 +157,21 @@ def main(warm: int = 3, analytic: bool = False, det: str = None) -> dict:
     cold = ccd()
     walls = [ccd() for _ in range(warm)]
     fft_walls = [fft_pass() for _ in range(warm)]
-    prof_ccd = _profiled(lambda: ccd()["ccd"])
-    prof_fft = _profiled(fft_pass)
     return dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                 path="analytic" if analytic else "optics",
                 det=state.det_name, frame=(state.ny, state.nx),
                 build_s=build_s,
                 n_fft=int((modes == PP.FFT).sum()), cold=cold, warm=walls,
-                fft_pass_warm_s=fft_walls, profiled_ccd=prof_ccd,
-                profiled_fft_pass=prof_fft)
+                fft_pass_warm_s=fft_walls,
+                traced_ccd=_traced(lambda: ccd()["ccd"]),
+                traced_fft_pass=_traced(fft_pass))
 
 
 def main_flats(warm: int = 3) -> dict:
     """build_flat (the runner's defaults) and build_flat_photons (the
     cut) on R22_S11's frame with the bench silicon: cold and warm wall
-    times, and one profiled warm run of each."""
+    times, and one traced warm run of each (the span `flat` or
+    `photon_flat`)."""
     from ..convert import load_ccd_state
     from ..image import flat as FL
     from ._util import flat_workload
@@ -177,7 +188,7 @@ def main_flats(warm: int = 3) -> dict:
                          2, pcfg, wl, sil, device))):
         walls = [_timed(fn)[1] for _ in range(warm + 1)]
         out[name] = dict(cold=walls[0], warm=walls[1:],
-                         profiled=_profiled(lambda: _timed(fn)[1]))
+                         traced=_traced(lambda: _timed(fn, name)[1]))
     return out
 
 
@@ -187,7 +198,7 @@ def main_instcat(warm: int = 3, band: str = "r") -> dict:
     directory), the visit context and prepare_ccd of R22_S11 with each
     host step's seconds, then render_one_ccd (the runner's per-CCD path:
     render, sky, cosmic rays, readout) cold, `warm` times warm with its
-    per-stage seconds, and one profiled warm run."""
+    per-stage seconds, and one traced warm run."""
     import tempfile
 
     from ..config import runner as TR
@@ -215,7 +226,7 @@ def main_instcat(warm: int = 3, band: str = "r") -> dict:
 
         cold = ccd()
         walls = [ccd() for _ in range(warm)]
-        prof = _profiled(lambda: ccd()["ccd"])
+        traced = _traced(lambda: ccd()["ccd"])
     cfg = prep.pcfg
     modes = PP.classify_objects(prep.host, cfg, PP.make_psf_mtf(cfg))
     _, total, nb, _ = PP.pooled_plan(prep.host, modes, cfg)
@@ -224,7 +235,7 @@ def main_instcat(warm: int = 3, band: str = "r") -> dict:
                 frame=(cfg.ysize, cfg.xsize), write_s=write_s, host_s=host_s,
                 n_objects=prep.host.n_objects, pooled=total, nbatch=nb,
                 n_fft=int((modes == PP.FFT).sum()), cold=cold, warm=walls,
-                profiled_ccd=prof)
+                traced_ccd=traced)
 
 
 def _cli():

@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config.yaml_subset import safe_load
+from ..utils import trace
 from ..utils.coords import DEG
 from .instcat import KNOTS, ObjectTable, POINT, SERSIC
 from .sed import SED
@@ -325,10 +326,11 @@ class NativeSkyCatalog:
             seds = df[sed_col]
             sed_objs = np.empty(m, object)
             t0 = time.perf_counter()
-            for j, i in enumerate(idx):
-                sed_objs[j] = tophat_sed(self.tophat_bins,
-                                         np.asarray(seds[i]),
-                                         z[i], mw_av[i], mw_rv[i])
+            with trace.span("prep.tophat_seds"):
+                for j, i in enumerate(idx):
+                    sed_objs[j] = tophat_sed(self.tophat_bins,
+                                             np.asarray(seds[i]),
+                                             z[i], mw_av[i], mw_rv[i])
             self.seconds["tophat seds"] += time.perf_counter() - t0
             hlr = np.sqrt(a[idx] * np.maximum(b[idx], 1e-12))
             q = np.clip(b[idx] / np.maximum(a[idx], 1e-12), 0.05, 1.0)

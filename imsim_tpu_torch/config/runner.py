@@ -64,6 +64,7 @@ from ..psf.atmosphere import AtmConfig, AtmScreens, load_screens, \
 from ..sensor.sensor_model import _kernel_cached, resolve_sensor_model
 from ..sensor.silicon import SiliconParams
 from ..sensor.treerings import TreeRings
+from ..utils import trace
 from ..utils.grid import coarse_shape
 from ..utils.rng import ATM_SEED_OFFSET, stream
 from .interpreter import ConfigView, deep_resolve, load_config
@@ -78,20 +79,26 @@ def _sync(device):
 
 
 class _Clock:
-    """Seconds per named step into `seconds` (with a device, synchronized
-    at each step's end, so a step's time holds its device work; only the
-    main thread passes one)."""
+    """Seconds per named step into `seconds`.  With `span`, each step is
+    also the span `<span>.<step>` of the CCD `ccd` (utils.trace.Steps).
+    With a device, a step's end synchronises it while tracing is on, so
+    the step's seconds hold its device work; off, they are the host's
+    seconds of launching it.  Only the render thread passes a device."""
 
-    def __init__(self, seconds: dict, device=None):
+    def __init__(self, seconds: dict, device=None, *, span=None, ccd=None):
         self.seconds, self.device = seconds, device
+        self.steps = None if span is None else trace.Steps(
+            span, ccd=ccd, device=device)
         self.t = time.perf_counter()
 
     def __call__(self, name):
-        if self.device is not None:
+        if self.device is not None and trace.on():
             _sync(self.device)
         now = time.perf_counter()
         self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
         self.t = now
+        if self.steps is not None:
+            self.steps.mark(name)
 
 
 # Host wall-clock accumulators [s] of the per-CCD steps that the prefetch
@@ -109,19 +116,33 @@ def reset_host_timers():
             HOST_TIMERS[k] = 0.0
 
 
-def _timed(key):
+def _timed(key, span, ccd=None):
+    """Add the function's host seconds to HOST_TIMERS[key], and record
+    it as the span `span`; ccd(*args, **kwargs) names its CCD (else the
+    enclosing span's)."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
+            det = ccd(*args, **kwargs) if ccd is not None and trace.on() \
+                else None
             t0 = time.perf_counter()
             try:
-                return fn(*args, **kwargs)
+                with trace.span(span, ccd=det):
+                    return fn(*args, **kwargs)
             finally:
                 dt = time.perf_counter() - t0
                 with _TIMER_LOCK:
                     HOST_TIMERS[key] += dt
         return wrapper
     return deco
+
+
+def _ccd_of_det(ctx, det, *args, **kwargs):
+    return _det(ctx, det)[0]
+
+
+def _ccd_of_result(ctx, result, *args, **kwargs):
+    return result["det_name"]
 
 
 @dataclasses.dataclass
@@ -454,7 +475,7 @@ def _silicon(ctx, ccd, det_name):
     return convert.runner_silicon(ccd, ctx.tree_rings, strength)
 
 
-@_timed("prep_s")
+@_timed("prep_s", "prep", _ccd_of_det)
 def prepare_ccd(ctx: VisitContext, det, *, window=None, device="cuda",
                 upload: bool = True) -> CcdPrep:
     """The host preparation of one CCD (`det`: its name or number): WCS
@@ -469,8 +490,8 @@ def prepare_ccd(ctx: VisitContext, det, *, window=None, device="cuda",
     through the analytic path."""
     cfg = ctx.cfg
     seconds = {}
-    clock = _Clock(seconds)
     det_name, det_num = _det(ctx, det)
+    clock = _Clock(seconds, span="prep", ccd=det_name)
     ccd = ctx.camera[det_name]
     nx, ny = ccd.bounds.width, ccd.bounds.height
     exptime = float(ctx.opsim.get("exptime", 30.0))
@@ -801,60 +822,70 @@ def render_one_ccd(ctx: VisitContext, det, device="cuda", *,
 
     Returns dict(det_name, det_num, image (the render), eimage, amps
     (16, raw_ny, raw_nx) int32 ADU or None, modes, realized, pieces,
-    tally, prep, host, table, wcs, ccd, seconds: host seconds per step,
-    the device synchronized at each step's end)."""
+    tally, prep, host, table, wcs, ccd, seconds: seconds per step, the
+    device synchronized at each step's end while tracing is on; spans
+    `ccd` and, under it, `ccd.upload` and the steps `ccd.<step>`)."""
     device = torch.device(device)
     seconds = {}
     det_name, det_num = _det(ctx, det)
-    if (ctx.cfg.get("image", {}) or {}).get("type") == "LSST_Flat":
-        clock = _Clock(seconds, device)
-        ccd = ctx.camera[det_name]
-        flat = _render_flat(ctx, det_name, det_num, device)
-        clock("flat")
-        result = dict(det_name=det_name, det_num=det_num, image=flat,
-                      eimage=flat, amps=None, modes=None, realized=None,
-                      pieces=None, tally=None, prep=None, host=None,
-                      table=None, wcs=ctx.wcs_factory.get_wcs(ccd), ccd=ccd,
-                      seconds=seconds)
-        readout = _readout_for(ctx, ccd, device)
-        if readout is not None:
-            result["amps"] = _run_readout(ctx, readout, flat, det_num,
-                                          exptime=float(ctx.opsim.get(
-                                              "exptime", 30.0)))
-            clock("readout")
-        if write:
-            prepare_readout(ctx, result)
-            write_outputs(ctx, result, logger)
-        return result
-    if prep is None:
-        prep = prepare_ccd(ctx, det_name, window=window, device=device)
-        seconds.update(prep.seconds)
-    elif prep.device is None or torch.device(prep.device) != device:
-        prep = upload_prep(ctx, prep, device)
-    clock = _Clock(seconds, device)
-    pieces = sky_noise_pieces(ctx, prep, device=device)
-    clock("sky pieces")
-    pcfg = prep.pcfg
-    tally = {} if tally is None else tally
-    realized = modes = None
-    if prep.host is not None and prep.host.n_objects > 0:
-        optics = prep.use_optics
-        track = bool((ctx.cfg.get("output", {}).get("truth", {})
-                      or {}).get("enabled", True))
-        image, modes, realized = render_ccd_pooled(
-            ctx.seed + det_num, prep.host, pcfg, silicon=prep.silicon,
-            tel=prep.tel32 if optics else None,
-            ctx=prep.octx if optics else None,
-            screens=ctx.screens(device) if optics else None,
-            sk_table=prep.sk_table if optics else None,
-            profiles=prep.profiles, spikes=prep.spikes, track_realized=track,
-            fft_vign=prep.fft_vign, tally=tally, checkpointer=prep.ckpt)
-    else:
-        image = torch.zeros((pcfg.ysize, pcfg.xsize), dtype=torch.float32,
-                            device=device)
-    clock("render")
-    return finish_ccd(ctx, prep, image, modes, realized, pieces, tally,
-                      seconds, clock, write=write, logger=logger)
+    with trace.span("ccd", ccd=det_name, device=device):
+        if (ctx.cfg.get("image", {}) or {}).get("type") == "LSST_Flat":
+            return _render_flat_ccd(ctx, det_name, det_num, device, seconds,
+                                    write, logger)
+        if prep is None:
+            prep = prepare_ccd(ctx, det_name, window=window, device=device)
+            seconds.update(prep.seconds)
+        elif prep.device is None or torch.device(prep.device) != device:
+            with trace.span("ccd.upload", device=device):
+                prep = upload_prep(ctx, prep, device)
+        clock = _Clock(seconds, device, span="ccd", ccd=det_name)
+        pieces = sky_noise_pieces(ctx, prep, device=device)
+        clock("sky pieces")
+        pcfg = prep.pcfg
+        tally = {} if tally is None else tally
+        realized = modes = None
+        if prep.host is not None and prep.host.n_objects > 0:
+            optics = prep.use_optics
+            track = bool((ctx.cfg.get("output", {}).get("truth", {})
+                          or {}).get("enabled", True))
+            image, modes, realized = render_ccd_pooled(
+                ctx.seed + det_num, prep.host, pcfg, silicon=prep.silicon,
+                tel=prep.tel32 if optics else None,
+                ctx=prep.octx if optics else None,
+                screens=ctx.screens(device) if optics else None,
+                sk_table=prep.sk_table if optics else None,
+                profiles=prep.profiles, spikes=prep.spikes,
+                track_realized=track, fft_vign=prep.fft_vign, tally=tally,
+                checkpointer=prep.ckpt)
+        else:
+            image = torch.zeros((pcfg.ysize, pcfg.xsize),
+                                dtype=torch.float32, device=device)
+        clock("render")
+        return finish_ccd(ctx, prep, image, modes, realized, pieces, tally,
+                          seconds, clock, write=write, logger=logger)
+
+
+def _render_flat_ccd(ctx, det_name, det_num, device, seconds, write, logger):
+    """render_one_ccd of an LSST_Flat config: the flat, its readout."""
+    clock = _Clock(seconds, device, span="ccd", ccd=det_name)
+    ccd = ctx.camera[det_name]
+    flat = _render_flat(ctx, det_name, det_num, device)
+    clock("flat")
+    result = dict(det_name=det_name, det_num=det_num, image=flat,
+                  eimage=flat, amps=None, modes=None, realized=None,
+                  pieces=None, tally=None, prep=None, host=None,
+                  table=None, wcs=ctx.wcs_factory.get_wcs(ccd), ccd=ccd,
+                  seconds=seconds)
+    readout = _readout_for(ctx, ccd, device)
+    if readout is not None:
+        result["amps"] = _run_readout(ctx, readout, flat, det_num,
+                                      exptime=float(ctx.opsim.get(
+                                          "exptime", 30.0)))
+        clock("readout")
+    if write:
+        prepare_readout(ctx, result)
+        write_outputs(ctx, result, logger)
+    return result
 
 
 def finish_ccd(ctx: VisitContext, prep: CcdPrep, image, modes, realized,
@@ -911,17 +942,19 @@ def finish_ccd(ctx: VisitContext, prep: CcdPrep, image, modes, realized,
     return result
 
 
-@_timed("readout_s")
+@_timed("readout_s", "readout.run")
 def _run_readout(ctx, readout: CcdReadout, frame, det_num, exptime):
     """The device readout chain -> (16, raw_ny, raw_nx) int32 amps
-    (synchronized, so readout_s holds its device time)."""
+    (synchronized while tracing is on, so readout_s then holds its
+    device time)."""
     amps = readout.run(stream(ctx.seed, "readout", det_num,
                               device=frame.device), frame, exptime)
-    _sync(frame.device)
+    if trace.on():
+        _sync(frame.device)
     return amps
 
 
-@_timed("readout_s")
+@_timed("readout_s", "ccd.pull", _ccd_of_result)
 def prepare_readout(ctx: VisitContext, result) -> None:
     """Pull the eimage and the amps to the host (numpy) in `result`, so
     write_outputs is pure host IO that a worker thread can take."""
@@ -950,7 +983,7 @@ _BUILTIN_OUTPUT_KEYS = {
     "cosmic_ray_rate", "cosmic_ray_catalog", "truth_realized"}
 
 
-@_timed("io_s")
+@_timed("io_s", "io.write", _ccd_of_result)
 def write_outputs(ctx: VisitContext, result, logger=None):
     """The CCD's files under output.dir: the eimage FITS (with the
     output.header extras), the RICE raw amp file (with
@@ -1157,7 +1190,9 @@ def visit_loop(ctx: VisitContext, dets, render, device, logger=None,
     prefetch=False, and one-CCD lists never prefetch); render uploads
     it.  With output.io_workers >= 1 and more than one CCD, the file
     writes go to that many threads, at most 2 x io_workers CCDs pending.
-    The worker threads run no device collective."""
+    The worker threads run no device collective.  The render thread's
+    waits for a preparation and for the IO backlog are the spans
+    `visit.wait_prep` and `visit.wait_io`."""
     out_cfg = ctx.cfg.get("output", {}) or {}
     io_workers = int(out_cfg.get("io_workers", 0))
 
@@ -1177,7 +1212,9 @@ def visit_loop(ctx: VisitContext, dets, render, device, logger=None,
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(host_prep, dets[0])
             for k, det_num in enumerate(dets):
-                prep = fut.result()
+                with trace.span("visit.wait_prep",
+                                ccd=_det(ctx, det_num)[0]):
+                    prep = fut.result()
                 if k + 1 < len(dets):
                     fut = pool.submit(host_prep, dets[k + 1])
                 yield det_num, prep
@@ -1198,19 +1235,24 @@ def visit_loop(ctx: VisitContext, dets, render, device, logger=None,
         write_outputs(ctx, result, logger)
         result.pop("amps", None)
 
+    def wait_io(det_name, fut):
+        with trace.span("visit.wait_io", ccd=det_name):
+            fut.result()                           # IO errors surface
+
     futures = []
     with ThreadPoolExecutor(max_workers=io_workers) as pool:
         for det_num, prep in preps_ahead():
             while len(futures) >= 2 * io_workers:
-                futures.pop(0).result()
+                wait_io(*futures.pop(0))
             result = render(det_num, prep)
             if result is None:
                 continue
             prepare_readout(ctx, result)           # device, main thread
-            futures.append(pool.submit(write_and_release, result))
+            futures.append((result["det_name"],
+                            pool.submit(write_and_release, result)))
             yield result
         for f in futures:
-            f.result()                             # IO errors surface
+            wait_io(*f)
 
 
 def run_visit(cfg_or_path, overrides=(), device="cuda", logger=None):

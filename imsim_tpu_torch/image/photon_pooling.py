@@ -23,6 +23,7 @@ from ..ops.scanrows import align_batch, scan_slot_prefix
 from ..photons import profiles as P
 from ..sensor.silicon import SiliconParams, accumulate_silicon
 from ..sensor.simple import accumulate
+from ..utils import trace
 from ..utils.rng import poisson_approx, stream
 from . import fft_render as F
 from . import render
@@ -417,86 +418,98 @@ class PooledPass:
     def batch(self, b: int, image, tally=None, realized=None):
         """Global batch b of the pass into `image` (in place for the
         binner) with the streams ("photons", b) and ("si", b) of the
-        CCD's seed; returns the image."""
+        CCD's seed; returns the image.  Spans: `render.batch`, and under
+        it `render.rows`, `render.shoot` and `render.sensor`."""
         dev = image.device
-        return _pooled_batch_step(
-            stream(self.seed, "photons", b, device=dev),
-            stream(self.seed, "si", b, device=dev), self.host.scene,
-            self.obj_map, self.cum, self.mat, self.total, b, self.nb,
-            self.batch_size, self.tel, self.ctx, self.screens,
-            self.sk_table, self.psf_tables, self.silicon, image, self.cfg,
-            self.pair, self.share, self.tr_field, self.families,
-            self.profiles, tally, realized)
+        with trace.span("render.batch", device=dev):
+            return _pooled_batch_step(
+                stream(self.seed, "photons", b, device=dev),
+                stream(self.seed, "si", b, device=dev), self.host.scene,
+                self.obj_map, self.cum, self.mat, self.total, b, self.nb,
+                self.batch_size, self.tel, self.ctx, self.screens,
+                self.sk_table, self.psf_tables, self.silicon, image,
+                self.cfg, self.pair, self.share, self.tr_field,
+                self.families, self.profiles, tally, realized)
 
 
 def pooled_pass(seed: int, host: SceneHost, modes, cfg: PoolingConfig,
                 silicon=None, tel=None, ctx=None, screens=None,
                 sk_table=None, profiles=None) -> PooledPass:
     """The pooled pass of a CCD after its classification: the plan, and
-    with photons to shoot the device map and tables its batches read."""
+    with photons to shoot the device map and tables its batches read
+    (the span `render.plan`: the plan, build_obj_map, the tree-ring
+    field)."""
     dev = host.scene.device
-    optics = tel is not None and ctx is not None
-    cum, total, nb, batch_size = pooled_plan(host, modes, cfg)
-    pair = cfg.pupil_pairing
-    share = max(cfg.screen_share, 1) if pair > 1 else 1
-    cum_dev = torch.as_tensor(cum, device=dev)
-    obj_map = None if total == 0 else build_obj_map(
-        cum_dev, total, nb, batch_size, pair, share)
-    mat = torch.cat([host.scene.params, host.scene.wl_cheb], dim=1)
-    # static tree-ring field, once per CCD, folded into every batch's
-    # continuity update; on the optics path the depth/diffusion
-    # displacement then fuses into the K2 chain, on the analytic path it
-    # runs per chunk in accumulate_silicon
-    tr_field = None
-    if total and silicon is not None and silicon.tr_active:
-        from ..sensor.silicon import tree_ring_field
-        tr_field = tree_ring_field(silicon, (cfg.ysize, cfg.xsize), dev)
-    families = tuple(sorted(set(
-        host.scene.params[:host.n_objects, COL_TYPE].to(torch.int64)
-        .tolist())))
-    psf_tables = None if optics else analytic_psf_tables(
-        cfg.fwhm, cfg.gauss_fwhm, dev, cfg.psf_table)
-    return PooledPass(seed, host, cfg, cum_dev, total, nb, batch_size, pair,
-                      share, obj_map, mat, tr_field, families, psf_tables,
-                      tel, ctx, screens, sk_table, silicon, profiles)
+    with trace.span("render.plan", device=dev):
+        optics = tel is not None and ctx is not None
+        cum, total, nb, batch_size = pooled_plan(host, modes, cfg)
+        pair = cfg.pupil_pairing
+        share = max(cfg.screen_share, 1) if pair > 1 else 1
+        cum_dev = torch.as_tensor(cum, device=dev)
+        obj_map = None if total == 0 else build_obj_map(
+            cum_dev, total, nb, batch_size, pair, share)
+        mat = torch.cat([host.scene.params, host.scene.wl_cheb], dim=1)
+        # static tree-ring field, once per CCD, folded into every
+        # batch's continuity update; on the optics path the depth/
+        # diffusion displacement then fuses into the K2 chain, on the
+        # analytic path it runs per chunk in accumulate_silicon
+        tr_field = None
+        if total and silicon is not None and silicon.tr_active:
+            from ..sensor.silicon import tree_ring_field
+            tr_field = tree_ring_field(silicon, (cfg.ysize, cfg.xsize), dev)
+        families = tuple(sorted(set(
+            host.scene.params[:host.n_objects, COL_TYPE].to(torch.int64)
+            .tolist())))
+        psf_tables = None if optics else analytic_psf_tables(
+            cfg.fwhm, cfg.gauss_fwhm, dev, cfg.psf_table)
+        return PooledPass(seed, host, cfg, cum_dev, total, nb, batch_size,
+                          pair, share, obj_map, mat, tr_field, families,
+                          psf_tables, tel, ctx, screens, sk_table, silicon,
+                          profiles)
 
 
 def _pooled_batch_step(gen, si_gen, scene, obj_map, cum, mat, total, b, nb,
                        batch_size, tel, ctx, screens, sk_table, psf_tables,
                        silicon, image, cfg: PoolingConfig, pair, share,
                        tr_field, families, profiles, tally, realized):
-    obj_idx, weight = batch_from_obj_map(obj_map, total, b, nb, batch_size,
-                                         pair, share)
-    row = materialize_rows_T(mat, cum, b, nb, batch_size, pair, share)
+    dev = image.device
+    with trace.span("render.rows", device=dev):
+        obj_idx, weight = batch_from_obj_map(obj_map, total, b, nb,
+                                             batch_size, pair, share)
+        row = materialize_rows_T(mat, cum, b, nb, batch_size, pair, share)
     # the optics path fuses the silicon's depth/diffusion displacement
     # into the K2 chain; the analytic path displaces each chunk
     fused = tel is not None and ctx is not None
-    if fused:
-        photons = render.shoot_full(
-            gen, row, obj_idx, weight, tel, ctx, profiles, families,
-            screens=screens, sk_table=sk_table, exptime=cfg.exptime,
-            pupil_pairing=pair, screen_share=share,
-            chromatic_exponent=cfg.chromatic_exponent, wl_ref=cfg.wl_ref,
-            apply_dcr=cfg.apply_dcr, apply_diffraction=cfg.apply_diffraction,
-            diffraction_field_rotation=cfg.diffraction_field_rotation,
-            silicon=silicon, si_gen=si_gen, aux_cloud=scene.aux_cloud)
-    else:
-        photons = render.shoot(
-            gen, scene, obj_idx, weight, psf_tables, profiles,
-            exptime=cfg.exptime, pixel_scale=cfg.pixel_scale, row=row,
-            families=families)
-    if realized is not None:
-        # per-object flux (the reference's pooled truth accumulation):
-        # one scatter per batch
-        realized.index_add_(0, obj_idx, photons.flux.to(torch.float64))
-    if tally is not None:
-        tally["pooled"] = tally.get("pooled", 0.0) \
-            + weight.sum(dtype=torch.float64)
-    if silicon is not None:
-        return accumulate_silicon(photons, image, silicon, nsub=cfg.nsub,
-                                  tr_field=tr_field, tally=tally,
-                                  pre_displaced=fused, gen=si_gen)
-    return accumulate(photons, image, tally)
+    with trace.span("render.shoot", device=dev):
+        if fused:
+            photons = render.shoot_full(
+                gen, row, obj_idx, weight, tel, ctx, profiles, families,
+                screens=screens, sk_table=sk_table, exptime=cfg.exptime,
+                pupil_pairing=pair, screen_share=share,
+                chromatic_exponent=cfg.chromatic_exponent,
+                wl_ref=cfg.wl_ref, apply_dcr=cfg.apply_dcr,
+                apply_diffraction=cfg.apply_diffraction,
+                diffraction_field_rotation=cfg.diffraction_field_rotation,
+                silicon=silicon, si_gen=si_gen, aux_cloud=scene.aux_cloud)
+        else:
+            photons = render.shoot(
+                gen, scene, obj_idx, weight, psf_tables, profiles,
+                exptime=cfg.exptime, pixel_scale=cfg.pixel_scale, row=row,
+                families=families)
+        if realized is not None:
+            # per-object flux (the reference's pooled truth
+            # accumulation): one scatter per batch
+            realized.index_add_(0, obj_idx, photons.flux.to(torch.float64))
+        if tally is not None:
+            tally["pooled"] = tally.get("pooled", 0.0) \
+                + weight.sum(dtype=torch.float64)
+    with trace.span("render.sensor", device=dev):
+        if silicon is not None:
+            return accumulate_silicon(photons, image, silicon,
+                                      nsub=cfg.nsub, tr_field=tr_field,
+                                      tally=tally, pre_displaced=fused,
+                                      gen=si_gen)
+        return accumulate(photons, image, tally)
 
 
 # ---- the FFT pass ---------------------------------------------------------
@@ -654,25 +667,29 @@ def _fft_pass(image, host: SceneHost, modes, cfg, psf_mtf, seed: int,
     bucketed by stamp size (batched stamps -> clip -> spikes -> Poisson
     -> slice adds).  Noise streams derive from the visit seed: bucket 0
     of "fftnoise" is the star field's, 1 + i the i-th galaxy bucket's.
+    The span `render.fft`.
 
     Returns (image, realized (n_objects,) float64 on the device): the
     stars' expected in-frame flux, the galaxies' stamp sums after
     noise."""
     dev = image.device
-    H, W = image.shape
-    realized = torch.zeros(host.n_objects, dtype=torch.float64, device=dev)
-    stars, buckets = fft_plan(host, modes, cfg, psf_mtf, spikes, vign)
-    if stars is not None:
-        image, r_star = F.star_field_pass(
-            image, *stars.args(dev), stream(seed, "fftnoise", 0, device=dev),
-            stars.Npad, H, W, stars.pad, cfg.pixel_scale, stars.margin)
-        realized[torch.as_tensor(stars.ids, device=dev)] = r_star.to(
-            torch.float64)
-    for bucket_i, bucket in enumerate(buckets):
-        stamps = poisson_approx(
-            stream(seed, "fftnoise", 1 + bucket_i, device=dev),
-            galaxy_stamps(bucket, psf_mtf, cfg, spikes, dev))
-        realized[torch.as_tensor(bucket.ids, device=dev)] = stamps.sum(
-            dim=(1, 2), dtype=torch.float64)
-        image = F.add_stamps(image, stamps, bucket.x0, bucket.y0)
-    return image, realized
+    with trace.span("render.fft", device=dev):
+        H, W = image.shape
+        realized = torch.zeros(host.n_objects, dtype=torch.float64,
+                               device=dev)
+        stars, buckets = fft_plan(host, modes, cfg, psf_mtf, spikes, vign)
+        if stars is not None:
+            image, r_star = F.star_field_pass(
+                image, *stars.args(dev),
+                stream(seed, "fftnoise", 0, device=dev), stars.Npad, H, W,
+                stars.pad, cfg.pixel_scale, stars.margin)
+            realized[torch.as_tensor(stars.ids, device=dev)] = r_star.to(
+                torch.float64)
+        for bucket_i, bucket in enumerate(buckets):
+            stamps = poisson_approx(
+                stream(seed, "fftnoise", 1 + bucket_i, device=dev),
+                galaxy_stamps(bucket, psf_mtf, cfg, spikes, dev))
+            realized[torch.as_tensor(bucket.ids, device=dev)] = stamps.sum(
+                dim=(1, 2), dtype=torch.float64)
+            image = F.add_stamps(image, stamps, bucket.x0, bucket.y0)
+        return image, realized

@@ -39,6 +39,7 @@ from ..image.photon_pooling import (FFT, _fft_pass, classify_objects,
 from ..io.checkpoint import Checkpointer
 from ..sensor.silicon import accumulate_silicon
 from ..sensor.simple import accumulate
+from ..utils import trace
 from ..utils.lookup import UniformTable
 from ..utils.rng import stream, stream_seed
 from .mesh import (Mesh, all_gather, all_reduce, broadcast, make_mesh,
@@ -362,24 +363,27 @@ def render_mesh_ccd(ctx, det, mesh: Mesh, *, prep=None, index: int = 0,
 
     device = mesh.device
     seconds = {}
-    if prep is None:
-        prep = R.prepare_ccd(ctx, det, device=device)
-        seconds.update(prep.seconds)
-    elif prep.device is None or torch.device(prep.device) != device:
-        prep = R.upload_prep(ctx, prep, device)
-    clock = R._Clock(seconds, device)
-    writer = mesh.coordinate[1] == 0
-    pieces = R.sky_noise_pieces(ctx, prep, device=device) if writer \
-        else None
-    clock("sky pieces")
-    tally = {}
-    image, modes, realized = render_mesh_pass(ctx, prep, mesh, index,
-                                              tally, logger)
-    clock("render")
-    if not writer:
-        return None
-    return R.finish_ccd(ctx, prep, image, modes, realized, pieces, tally,
-                        seconds, clock, logger=logger)
+    det_name = R._det(ctx, det)[0]
+    with trace.span("ccd", ccd=det_name, device=device):
+        if prep is None:
+            prep = R.prepare_ccd(ctx, det, device=device)
+            seconds.update(prep.seconds)
+        elif prep.device is None or torch.device(prep.device) != device:
+            with trace.span("ccd.upload", device=device):
+                prep = R.upload_prep(ctx, prep, device)
+        clock = R._Clock(seconds, device, span="ccd", ccd=det_name)
+        writer = mesh.coordinate[1] == 0
+        pieces = R.sky_noise_pieces(ctx, prep, device=device) if writer \
+            else None
+        clock("sky pieces")
+        tally = {}
+        image, modes, realized = render_mesh_pass(ctx, prep, mesh, index,
+                                                  tally, logger)
+        clock("render")
+        if not writer:
+            return None
+        return R.finish_ccd(ctx, prep, image, modes, realized, pieces,
+                            tally, seconds, clock, logger=logger)
 
 
 def run_visit_mesh(ctx, dets, mesh_cfg, logger=None, device="cuda"):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..photons.batch import PhotonBatch
+from ..utils import trace
 
 
 def accumulate(photons: PhotonBatch, image: torch.Tensor,
@@ -12,11 +13,17 @@ def accumulate(photons: PhotonBatch, image: torch.Tensor,
     """Add photon flux into the (H, W) image in place and return it.
     Integer (x, y) are pixel centres; out-of-frame photons are dropped.
     With `tally`, the in-frame flux is added (as a float64 device
-    scalar, no host sync) to tally["in_frame"]."""
+    scalar, no host sync) to tally["in_frame"].  While tracing is on,
+    the counters `sensor.binned` (the photons handed in) and
+    `sensor.off_frame` (those outside the frame, which the scatter sends
+    to pixel 0 with flux 0)."""
     H, W = image.shape
     fx = torch.round(photons.x)
     fy = torch.round(photons.y)
     inb = (fx >= 0) & (fx < W) & (fy >= 0) & (fy < H)
+    if trace.on():
+        trace.count("sensor.binned", inb.numel())
+        trace.count("sensor.off_frame", inb.numel() - inb.sum())
     flux = torch.where(inb, photons.flux, 0.0).to(image.dtype)
     # masked before the integer cast: a NaN or huge coordinate must
     # never become an index
