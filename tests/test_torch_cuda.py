@@ -924,3 +924,30 @@ def test_cosmic_rays_card_bitwise(cuda):
     a = paint_cosmic_rays(base.clone().to(cuda), 30.0, 3, ccd_rate=200.0)
     b = paint_cosmic_rays(base.clone(), 30.0, 3, ccd_rate=200.0)
     assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whole", [True, False])
+@pytest.mark.parametrize("share", [0.0, 0.002, 0.09, 1.0])
+def test_binning_tail_matches_pixel0_on_the_card(cuda, share, whole):
+    """sensor/simple's tail binner against the pixel-0 reference of
+    tests/test_torch_binning.py on the card's sorted scatter, twice.  The
+    stable sort leaves every in-frame run as it was, so every pixel but
+    (0, 0) is bit-equal for any flux; (0, 0)'s photons leave the run of
+    off-frame zeros, which moves them between the warp's lanes, and its
+    sum is exact for whole fluxes (the pooled render's 0 or 1) alone."""
+    from test_torch_binning import _photons, _pixel0
+
+    from imsim_tpu_torch.sensor.simple import accumulate
+
+    ph = _photons(share, seed=51, whole=whole, bad=share > 0)
+    ph = ph.replace(**{f.name: getattr(ph, f.name).to(cuda)
+                       for f in dataclasses.fields(ph)
+                       if getattr(ph, f.name) is not None})
+    shape = (48, 56)
+    want = _pixel0(ph, torch.zeros(shape, device=cuda))
+    for got in (accumulate(ph, torch.zeros(shape, device=cuda)),
+                accumulate(ph, torch.zeros_like(want))):
+        if not whole:
+            got[0, 0] = want[0, 0]
+        assert torch.equal(got, want)
