@@ -27,7 +27,7 @@ import torch
 from ..photons.batch import PhotonBatch
 from ..sensor.silicon import (SiliconParams, accumulate_silicon,
                               displacement_field, tree_ring_field)
-from ..utils import rng
+from ..utils import rng, trace
 from ..utils.rng import stream
 from .render import _interp_weights
 
@@ -107,16 +107,20 @@ def _flat_photon_iteration(gen, image: torch.Tensor, wl_row: torch.Tensor,
     wavelengths from wl_row, through accumulate_silicon with the
     per-chunk displacement (depth, diffusion, BF, the folded tree-ring
     field).  Draws, in order: x, y, the wavelength uniform, then the
-    silicon's per chunk."""
+    silicon's per chunk.  Spans `flat.draw` and `flat.sensor`, counter
+    `flat.photons`."""
     H, W = image.shape
-    x = rng.uniform(gen, n_phot, -0.5, W - 0.5)
-    y = rng.uniform(gen, n_phot, -0.5, H - 0.5)
-    wl = _wavelengths(wl_row, rng.uniform(gen, n_phot))
-    z = torch.zeros_like(x)
-    ph = PhotonBatch(x=x, y=y, flux=torch.ones_like(x), wavelength=wl,
-                     dxdz=z, dydz=z, pupil_u=z, pupil_v=z, time=z)
-    return accumulate_silicon(ph, image, params, nsub=nsub,
-                              tr_field=tr_field, gen=gen)
+    with trace.span("flat.draw", device=image.device):
+        x = rng.uniform(gen, n_phot, -0.5, W - 0.5)
+        y = rng.uniform(gen, n_phot, -0.5, H - 0.5)
+        wl = _wavelengths(wl_row, rng.uniform(gen, n_phot))
+        z = torch.zeros_like(x)
+        ph = PhotonBatch(x=x, y=y, flux=torch.ones_like(x), wavelength=wl,
+                         dxdz=z, dydz=z, pupil_u=z, pupil_v=z, time=z)
+    trace.count("flat.photons", n_phot)
+    with trace.span("flat.sensor", device=image.device):
+        return accumulate_silicon(ph, image, params, nsub=nsub,
+                                  tr_field=tr_field, gen=gen)
 
 
 def photon_flat_plan(cfg: FlatConfig):
@@ -133,7 +137,8 @@ def build_flat_photons(seed: int, cfg: FlatConfig, wl_icdf,
     """SED photon-shooting flat: counts_per_iter photons per pixel per
     iteration (expected, before photons lost deeper than the device),
     iterated to counts_per_pixel.  wl_icdf: (K,) inverse CDF of the
-    illumination's wavelengths.  (ysize, xsize) float32 on `device`."""
+    illumination's wavelengths.  (ysize, xsize) float32 on `device`.
+    A span `flat.iter` for each iteration, over its sub-batches."""
     params = params or SiliconParams.make()
     image, start = _resume(checkpointer, "flat_phot",
                            (cfg.ysize, cfg.xsize), device)
@@ -143,10 +148,11 @@ def build_flat_photons(seed: int, cfg: FlatConfig, wl_icdf,
     if params.tr_active:
         tr_field = tree_ring_field(params, (cfg.ysize, cfg.xsize), device)
     for k in range(start, n_iter):
-        for s in range(n_sub):
-            image = _flat_photon_iteration(
-                stream(seed, "flatphot", k * n_sub + s, device=device),
-                image, wl_row, params, per, tr_field=tr_field)
+        with trace.span("flat.iter", device=device):
+            for s in range(n_sub):
+                image = _flat_photon_iteration(
+                    stream(seed, "flatphot", k * n_sub + s, device=device),
+                    image, wl_row, params, per, tr_field=tr_field)
         if checkpointer is not None and (k + 1) % 10 == 0:
             checkpointer.save("flat_phot", dict(image=image.cpu().numpy(),
                                                 next_iter=k + 1))

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..photons.batch import PhotonBatch
-from ..utils import rng
+from ..utils import rng, trace
 from ..utils.lookup import UniformTable, clenshaw_const
 from .simple import accumulate
 
@@ -328,7 +328,9 @@ def accumulate_silicon(photons: PhotonBatch, image: torch.Tensor,
     the photons already carry their depth/diffusion displacement (the
     optics path's fused chain), 'image' mode only; otherwise each chunk
     is displaced with draws from `gen`, chunk by chunk.  Photons past
-    nsub * (n // nsub) are not accumulated, as in the reference."""
+    nsub * (n // nsub) are not accumulated, as in the reference.  Each
+    chunk's spans: `sensor.field` (K3), `sensor.displace`, `sensor.bin`
+    and, in 'image' mode, `sensor.redistribute`."""
     if pre_displaced and bf_mode == "photon":
         raise ValueError("pre_displaced requires bf_mode='image'")
     if bf_mode not in ("image", "photon"):
@@ -337,23 +339,31 @@ def accumulate_silicon(photons: PhotonBatch, image: torch.Tensor,
         raise ValueError("the per-chunk displacement needs `gen`")
     chunk = photons.n // nsub
     fold_tr = tr_field is not None and bf_mode == "image"
+    dev = image.device
     if bf_mode == "photon":
         # the chunks bin into the running image: never into the caller's
         image = image.clone()
     for i in range(nsub):
-        dx, dy = displacement_field(image, params)
+        with trace.span("sensor.field", device=dev):
+            dx, dy = displacement_field(image, params)
         ph = photons.slice(i * chunk, (i + 1) * chunk)
         if bf_mode == "photon":
-            ph = apply_silicon_displacements(
-                ph, params, silicon_draws(gen, chunk), disp=(dx, dy))
-            image = accumulate(ph, image, tally)
+            with trace.span("sensor.displace", device=dev):
+                ph = apply_silicon_displacements(
+                    ph, params, silicon_draws(gen, chunk), disp=(dx, dy))
+            with trace.span("sensor.bin", device=dev):
+                image = accumulate(ph, image, tally)
             continue
         if not pre_displaced:
-            ph = apply_silicon_displacements(
-                ph, params, silicon_draws(gen, chunk), treerings=not fold_tr)
-        chunk_img = accumulate(ph, torch.zeros_like(image), tally)
-        if fold_tr:
-            dx = dx + tr_field[0]
-            dy = dy + tr_field[1]
-        image = image + bf_redistribute(chunk_img, dx, dy)
+            with trace.span("sensor.displace", device=dev):
+                ph = apply_silicon_displacements(
+                    ph, params, silicon_draws(gen, chunk),
+                    treerings=not fold_tr)
+        with trace.span("sensor.bin", device=dev):
+            chunk_img = accumulate(ph, torch.zeros_like(image), tally)
+        with trace.span("sensor.redistribute", device=dev):
+            if fold_tr:
+                dx = dx + tr_field[0]
+                dy = dy + tr_field[1]
+            image = image + bf_redistribute(chunk_img, dx, dy)
     return image

@@ -147,6 +147,35 @@ def test_render_on_gives_the_ccd_span_tree(ccd, monkeypatch):
     assert tot["sensor.binned"] > 0
 
 
+SENSOR = ["sensor.field", "sensor.displace", "sensor.bin",
+          "sensor.redistribute"]
+
+
+def test_sensor_spans_nest_under_render_sensor(catalog, tmp_path):
+    """With the Silicon sensor each render.sensor holds, per chunk, the
+    sensor's spans in order: the BF field (K3), the depth and diffusion
+    (the analytic PSF's photons; the optics path moves them in its ray
+    chain and has no sensor.displace), the binning scatter and the
+    continuity update."""
+    ctx = TR.build_visit_context(load_config(
+        {"template": "imsim-config-instcat"},
+        _over(catalog, tmp_path, "image.sensor.type=Silicon")))
+    prep = TR.prepare_ccd(ctx, DET, window=(128, 128), device="cpu",
+                          upload=False)
+    trace.enable()
+    TR.render_one_ccd(ctx, DET, "cpu", prep=prep)
+    trace.disable()
+    sp = trace.spans()
+    kids = {s["id"]: [c["name"] for c in sp if c["parent"] == s["id"]]
+            for s in sp}
+    sensors = [s for s in sp if s["name"] == "render.sensor"]
+    assert sensors
+    for s in sensors:
+        names = kids[s["id"]]
+        assert names and names == SENSOR * (len(names) // len(SENSOR))
+    assert all(s["ccd"] == DET for s in sp)
+
+
 def test_binner_counters_match_a_hand_count():
     H, W = 6, 8
     x = torch.tensor([0.0, 7.4, 7.6, -0.6, -0.4, 3.0, 3.0, 100.0,
