@@ -22,7 +22,12 @@ ok line is never printed):
      function, that call's time (K3: one float32 conv2d, first held to
      1e-5 of max |out| of the twin); gate (ad): K1 repeats bit for bit,
      five calls on batch 0's deltas and one on a second stream, each
-     equal to the first;
+     equal to the first; K5, the binning scatter, through
+     sensor/simple.accumulate onto a charged 4004 x 4096 frame at the
+     flat's sub-batch (16,769,309 photons) and the sky chunk (1,876,480,
+     9% off the frame), fluxes 0 and 1: bit-equal to the sorted scatter
+     of its twin, five calls alike, the same in-frame tally and
+     counters (one PyTorch call: the twin's index_put_);
   4. the whole bench CCD, cold and warm: render_ccd_pooled with the FFT
      branch (the 17 bright stars in one Fourier synthesis, with
      diffraction spikes at the full well), the sky and its noise, and the
@@ -126,7 +131,7 @@ ok line is never printed):
      2% of (z)'s with the silicon on (`mesh_ranks_phot`); each run's
      launches, summed over its ranks, equal to its plan; (ac) the native
      tokenizer's table against the Python loop's on the visit's catalog;
- 14. the kernel report (JSON, all eleven kernels, with bound_ms,
+ 14. the kernel report (JSON, all twelve kernels, with bound_ms,
      bound_by, library_ms and the launches on every path) and, last, the
      ok line.
 
@@ -201,7 +206,7 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def phase_kernels(device, state, host, cfg, ctx):
+def phase_kernels(device, state, host, cfg, ctx, small=False):
     """Each kernel against its plain twin on the same inputs, at the
     main path's shapes.  Returns the report rows (launches filled in
     later)."""
@@ -218,6 +223,7 @@ def phase_kernels(device, state, host, cfg, ctx):
     del field
     rows.append(_k3_row(timer, gen, state.silicon, cfg.ysize, cfg.xsize,
                         device))
+    rows.append(_k5_row(timer, gen, device, small))
     for row in rows:
         log_kernel(row)
     return rows, nb
@@ -411,6 +417,93 @@ def _k3_row(timer, gen, silicon, H, W, device, tag="K3"):
                                     "library_ms", "bound_ms", "bound_by")})
 
 
+def _k5_case(timer, gen, frame, n, share, star, device, tag):
+    """K5 (through sensor/simple.accumulate) against the sorted scatter
+    of its twin on n photons with fluxes of 0 and 1 over `frame`, the
+    first `share` of them off it, binned onto a charged base: the image
+    bit-equal, five calls alike, the in-frame tally and the counters
+    sensor.binned, .off_frame and .nonunit equal.  Returns (photons,
+    kernel ms, plain ms, index_put_ ms, bound)."""
+    import torch
+
+    from imsim_tpu_torch.benchmarks import accumulate_probe as AP
+    from imsim_tpu_torch.benchmarks._util import bound
+    from imsim_tpu_torch.ops import binning
+    from imsim_tpu_torch.photons.batch import PhotonBatch
+    from imsim_tpu_torch.sensor import simple
+    from imsim_tpu_torch.utils import trace
+
+    H, W = frame
+    x, y, flux = AP._chunk(gen, n, frame, share, device, star)
+    flux = (flux < 1.8).float()
+    ph = PhotonBatch.zeros(n, device=device).replace(x=x, y=y, flux=flux)
+    base = torch.rand(frame, generator=gen, device=device) * 1e3
+
+    def binned(fn):
+        tally = {}
+        trace.reset()
+        trace.enable()
+        try:
+            img = fn(ph, base.clone(), tally)
+            counts = {c["name"]: c["value"] for c in trace.counters()}
+        finally:
+            trace.disable()
+            trace.reset()
+        return img, float(tally["in_frame"]), counts
+
+    got, t_got, c_got = binned(simple.accumulate)
+    want, t_want, c_want = binned(simple.accumulate_plain)
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    repeats = sum(torch.equal(simple.accumulate(ph, base.clone()), got)
+                  for _ in range(5))
+    log(f"[{tag}] {n} photons on {H}x{W}, {share:.0%} off the frame: "
+        f"image {'bit-equal' if same else 'DIFFERS'} to the twin's, "
+        f"{repeats} of 5 calls alike, in-frame {t_got} / {t_want}, "
+        f"counters {c_got} / {c_want}")
+    _check(same and repeats == 5, f"{tag}: K5 off its twin or not "
+           f"repeating")
+    _check(t_got == t_want and c_got == c_want
+           and c_got["sensor.nonunit"] == 0,
+           f"{tag}: K5's tally or counters off the twin's")
+    del got, want
+    scratch = torch.zeros(frame, device=device)
+    kernel = (lambda: binning.bin_scatter(x, y, flux, scratch)) \
+        if timer.cuda else (lambda: simple.accumulate(ph, scratch))
+    tail = simple.tail_slots(n, H * W)
+    idx, f, _ = simple.bin_indices(ph, H, W, tail)
+    buf = torch.zeros(H * W + tail, device=device)
+    # bound: x, y and flux read once (12 B a photon); the adds land in
+    # a frame near L2's size and are not counted
+    return (timer.ms(kernel, reps=5),
+            timer.ms(lambda: simple.accumulate_plain(ph, base.clone())),
+            timer.ms(lambda: buf.index_put_((idx,), f, accumulate=True),
+                     reps=5),
+            bound(0, 12 * n))
+
+
+def _k5_row(timer, gen, device, small, tag="K5"):
+    """K5 against its plain twin at the flat's sub-batch and at the sky
+    chunk on the flat's 4004 x 4096 frame (the rehearsal: the same
+    photons a pixel on 512 x 512): the report row, at the flat's
+    sub-batch; the sky chunk's times logged."""
+    from imsim_tpu_torch.benchmarks import accumulate_probe as AP
+
+    frame = (512, 512) if small else AP.FRAME
+    scale = frame[0] * frame[1] / (AP.FRAME[0] * AP.FRAME[1])
+    sky = _k5_case(timer, gen, frame, round(AP.N_CHUNK * scale), 0.09,
+                   True, device, f"{tag} sky chunk")
+    log(f"[{tag}] sky chunk: {sky[0]:.4f} ms (bound {sky[3]['bound_ms']:.4f}"
+        f" ms), plain twin {sky[1]:.3f} ms, index_put_ {sky[2]:.4f} ms")
+    ms, plain_ms, lib_ms, b = _k5_case(
+        timer, gen, frame, round(AP.N_FLAT * scale), 0.0, False, device,
+        f"{tag} flat sub-batch")
+    return dict(name="bin_scatter", route="cuda",
+                source="imsim_tpu_torch/csrc/binning.cu",
+                replaces="imsim_tpu/sensor/simple.py:33",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b)
+
+
 def _stage(timer, name, fn, expect):
     """Run one stage with the counts set to 0 just before it: (result,
     wall s, peak device memory GiB, launches); the launches must equal
@@ -484,7 +577,7 @@ def phase_ccd(device, state, host, cfg, ctx, nb, small: bool,
     spikes, frac = _spikes(device, ro)
     none = {k: 0 for k in _build.LAUNCHES}
     expect = dict(none, scan_slot_prefix=nb, field_to_sensor=nb,
-                  stencil_pair=nb * cfg.nsub)
+                  stencil_pair=nb * cfg.nsub, bin_scatter=nb * cfg.nsub)
     grad = (0.0, 0.0, 1.0)
     result = {}
     gates_fft = None
@@ -837,7 +930,8 @@ def phase_analytic(device, small: bool):
     _, _, nb, _ = PP.pooled_plan(host, PP.classify_objects(
         host, cfg, PP.make_psf_mtf(cfg)), cfg)
     none = {k: 0 for k in _build.LAUNCHES}
-    expect = dict(none, scan_slot_prefix=nb, stencil_pair=nb * cfg.nsub)
+    expect = dict(none, scan_slot_prefix=nb, stencil_pair=nb * cfg.nsub,
+                  bin_scatter=nb * cfg.nsub)
     result = {}
     # the rehearsal runs it once: the CPU's readout takes seconds
     for label in ("cold",) if small else ("cold", "warm"):
@@ -984,7 +1078,7 @@ def phase_flats(device, state, small: bool):
     pflat, t_p, m_p, l_p = _stage(
         timer, "photon flat", lambda: FL.build_flat_photons(
             2, pcfg, wl, state.silicon, device),
-        dict(none, stencil_pair=n_it * n_sub))
+        dict(none, stencil_pair=n_it * n_sub, bin_scatter=n_it * n_sub))
     sp = FL.flat_statistics(pflat)
     del pflat
     # the expectation: every photon that converts inside the device
@@ -1092,7 +1186,7 @@ def phase_modes(device, state, small: bool):
             timer, f"bf_mode {mode}", lambda: accumulate_silicon(
                 photons, zero, state.silicon, nsub=cfg.nsub, tr_field=tr,
                 bf_mode=mode, gen=stream(0, "si", 0, device=device)),
-            dict(none, stencil_pair=cfg.nsub))
+            dict(none, stencil_pair=cfg.nsub, bin_scatter=cfg.nsub))
         log(f"[modes] (m) bf_mode {mode}: {t_m:.3f} s, launches "
             f"{launches[mode]}")
     charge = {k: float(v.sum(dtype=torch.float64)) for k, v in imgs.items()}
@@ -1401,7 +1495,7 @@ def _instcat_band(device, small, wl, band, window, want):
 
     none = {k: 0 for k in _build.LAUNCHES}
     expect = dict(none, scan_slot_prefix=nb, field_to_sensor=nb,
-                  stencil_pair=nb * cfg.nsub)
+                  stencil_pair=nb * cfg.nsub, bin_scatter=nb * cfg.nsub)
     if not timer.cuda:
         expect = none
     spikes = prep.spikes
@@ -1617,8 +1711,8 @@ def _visit_ccds(device, small, root, wl):
     _check([r["det_name"] for r in results] == list(VISIT_DETS),
            f"the visit rendered {[r['det_name'] for r in results]}")
 
-    # the launches the plan predicts: K1 and K2 once a batch, K3 once a
-    # sub-batch with the silicon
+    # the launches the plan predicts: K1 and K2 once a batch, K3 and K5
+    # once a sub-batch with the silicon
     want = _plan_launches(device, results)
     steps = 0.0
     for r in results:
@@ -1919,7 +2013,8 @@ def _ccd_plan(r) -> dict:
 
 def _plan_of(ccds) -> dict:
     """The launches CCD plans predict: K1 and K2 once a batch on the
-    optics path, K3 once a sub-batch with the silicon."""
+    optics path, K3 and K5 once a sub-batch with the silicon, K5 once a
+    batch without."""
     from imsim_tpu_torch.ops import _build
 
     want = {k: 0 for k in _build.LAUNCHES}
@@ -1929,6 +2024,7 @@ def _plan_of(ccds) -> dict:
             want["field_to_sensor"] += c["nb"]
         if c["silicon"]:
             want["stencil_pair"] += c["nb"] * c["nsub"]
+        want["bin_scatter"] += c["nb"] * (c["nsub"] if c["silicon"] else 1)
     return want
 
 
@@ -2492,7 +2588,7 @@ def run(device, small: bool = False) -> dict:
     if device.type == "cuda":
         phase_build()
     state, host, cfg, ctx = workload(device, small)
-    rows, nb = phase_kernels(device, state, host, cfg, ctx)
+    rows, nb = phase_kernels(device, state, host, cfg, ctx, small)
     res = phase_ccd(device, state, host, cfg, ctx, nb, small)
     del host
     paths = dict(bench_ccd=res["launches"])

@@ -24,8 +24,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # launches per kernel wrapper: bumped where the wrapper launches its
 # kernel, and nowhere else
 LAUNCHES = {"scan_slot_prefix": 0, "field_to_sensor": 0, "stencil_pair": 0,
-            "scan_lanes": 0, "probe_p1": 0, "probe_p2": 0, "probe_p3": 0,
-            "probe_p4": 0, "probe_p5": 0, "probe_mk": 0, "probe_mk2": 0}
+            "bin_scatter": 0, "scan_lanes": 0, "probe_p1": 0, "probe_p2": 0,
+            "probe_p3": 0, "probe_p4": 0, "probe_p5": 0, "probe_mk": 0,
+            "probe_mk2": 0}
 
 _LIB = None
 BUILD_INFO = {}

@@ -1,10 +1,12 @@
-"""The binning scatter (imsim_tpu_torch.sensor.simple) against its
-former formulation, kept here as the plain reference: every
-out-of-frame photon sent to pixel 0 with flux 0.  The binner now sends
-each to a tail slot of its own past the frame; the frame must come out
-bit-equal, for any flux, wherever the scatter is deterministic: the
-sorted scatter (`torch.use_deterministic_algorithms`, the kind CUDA
-always runs) and the CPU's serial loop on one thread.  (The CPU's
+"""The binning scatter's plain twin (imsim_tpu_torch.sensor.simple.
+accumulate_plain, which `accumulate` runs on the CPU; on the card K5
+bins, held to the twin by tests/test_torch_cuda.py) against its former
+formulation, kept here as the plain reference: every out-of-frame
+photon sent to pixel 0 with flux 0.  The twin sends each to a tail slot
+of its own past the frame; the frame must come out bit-equal, for any
+flux, wherever the scatter is deterministic: the sorted scatter
+(`torch.use_deterministic_algorithms`, the kind `index_put_` always
+runs on CUDA) and the CPU's serial loop on one thread.  (The CPU's
 threaded scatter adds in no fixed order, for either formulation.)"""
 import contextlib
 
@@ -36,6 +38,8 @@ def _pixel0(photons, image, tally=None):
     if trace.on():
         trace.count("sensor.binned", inb.numel())
         trace.count("sensor.off_frame", inb.numel() - inb.sum())
+        trace.count("sensor.nonunit",
+                    ((photons.flux != 0) & (photons.flux != 1)).sum())
     flux = torch.where(inb, photons.flux, 0.0).to(image.dtype)
     ix = torch.where(inb, fx, 0.0).to(torch.int64)
     iy = torch.where(inb, fy, 0.0).to(torch.int64)

@@ -926,28 +926,197 @@ def test_cosmic_rays_card_bitwise(cuda):
     assert torch.equal(a.cpu(), b)
 
 
+def _to(ph, dev):
+    return ph.replace(**{f.name: getattr(ph, f.name).to(dev)
+                         for f in dataclasses.fields(ph)
+                         if getattr(ph, f.name) is not None})
+
+
+def _binned(fn, ph, image):
+    """fn(ph, image, tally) traced: (image, tally's in-frame flux, the
+    counters' totals)."""
+    from imsim_tpu_torch.utils import trace
+
+    trace.reset()
+    trace.enable()
+    tally = {}
+    try:
+        out = fn(ph, image, tally)
+        got = {}
+        for c in trace.counters():
+            got[c["name"]] = got.get(c["name"], 0.0) + c["value"]
+    finally:
+        trace.disable()
+        trace.reset()
+    return out, float(tally["in_frame"]), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("charged", [False, True])
+@pytest.mark.parametrize("share,bad", [
+    (0.0, False), (0.002, False), (0.09, False), (1.0, False),
+    (0.002, True), (0.09, True), (1.0, True)])
+def test_bin_scatter_matches_the_sorted_twin(cuda, share, bad, charged):
+    """K5 (sensor/simple.accumulate on the card) against its plain twin,
+    the sorted scatter, run on the card too, for fluxes of 0 and 1:
+    off-frame shares of 0 to 100%, NaN, infinite and huge coordinates,
+    an empty base and one charged with fractional values.  The frame is
+    equal bit for bit and repeats over five calls; the in-frame flux
+    and the three counters are equal."""
+    from test_torch_binning import H, W, _photons
+
+    from imsim_tpu_torch.sensor import simple
+
+    ph = _to(_photons(share, seed=61 + bad, whole=True, bad=bad), cuda)
+    g = torch.Generator().manual_seed(8)
+    base = (1e3 * torch.rand((H, W), generator=g) if charged
+            else torch.zeros((H, W))).to(cuda)
+    want, t_want, c_want = _binned(simple.accumulate_plain, ph, base.clone())
+    n0 = _build.LAUNCHES["bin_scatter"]
+    for _ in range(5):
+        image = base.clone()
+        got, t_got, c_got = _binned(simple.accumulate, ph, image)
+        assert got is image
+        assert torch.equal(got, want)
+        assert t_got == t_want and c_got == c_want
+    assert _build.LAUNCHES["bin_scatter"] == n0 + 5
+    assert c_want["sensor.nonunit"] == 0
+    assert c_want["sensor.binned"] == ph.n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3, 5, 4098])
+def test_bin_scatter_on_unaligned_slices(cuda, offset):
+    """Slices of a batch start at any photon: K5 bins a slice whose start
+    is no multiple of 4 (nor of 16 bytes) as the twin does."""
+    from test_torch_binning import H, W, _photons
+
+    from imsim_tpu_torch.sensor import simple
+
+    ph = _to(_photons(0.09, seed=71, whole=True), cuda)
+    part = ph.slice(offset, ph.n - 7)
+    assert part.x.data_ptr() % 16 != 0
+    want = simple.accumulate_plain(part, torch.zeros((H, W), device=cuda))
+    got = simple.accumulate(part, torch.zeros((H, W), device=cuda))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bin_scatter_full_frame_flat_sub_batch(cuda):
+    """The flat's sub-batch: 16,769,309 photons over the whole 4004 x 4096
+    frame (0.1% of them just beyond its edges), fluxes 0 and 1, on a
+    charged base: bit-equal to the twin, five calls alike, the tally and
+    the counters equal."""
+    from imsim_tpu_torch.photons.batch import PhotonBatch
+    from imsim_tpu_torch.sensor import simple
+
+    H, W, n = 4004, 4096, 16_769_309
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.rand(n, generator=g, device=cuda) * (W + 2) - 1.5
+    y = torch.rand(n, generator=g, device=cuda) * (H + 2) - 1.5
+    flux = (torch.rand(n, generator=g, device=cuda) < 0.97).float()
+    ph = PhotonBatch.zeros(n, device=cuda).replace(x=x, y=y, flux=flux)
+    base = torch.floor(1500 + 50 * torch.randn(
+        (H, W), generator=g, device=cuda)) + 0.25
+    want, t_want, c_want = _binned(simple.accumulate_plain, ph, base.clone())
+    for _ in range(5):
+        got, t_got, c_got = _binned(simple.accumulate, ph, base.clone())
+        assert torch.equal(got, want)
+        assert t_got == t_want and c_got == c_want
+    assert 0 < c_want["sensor.off_frame"] < 0.01 * n
+    assert c_want["sensor.nonunit"] == 0
+
+
+@pytest.mark.cuda
+def test_bin_scatter_counts_nonunit_fluxes(cuda):
+    """Fluxes other than 0 and 1 are counted by K5 as by the twin (NaN
+    too), and bin to the twin's sums within float32 rounding (the bound
+    of test_binning_tail_matches_pixel0_on_the_card)."""
+    from test_torch_binning import H, W, _photons
+
+    from imsim_tpu_torch.sensor import simple
+
+    ph = _to(_photons(0.09, seed=81, bad=True), cuda)
+    flux = ph.flux.clone()
+    flux[::7] = 1.0
+    flux[::11] = 0.0
+    flux[5] = float("nan")
+    ph = ph.replace(flux=flux)
+    want, _, c_want = _binned(simple.accumulate_plain, ph,
+                              torch.zeros((H, W), device=cuda))
+    got, _, c_got = _binned(simple.accumulate, ph,
+                            torch.zeros((H, W), device=cuda))
+    assert c_got == c_want
+    expect = ((flux != 0) & (flux != 1)).sum().item()
+    assert c_got["sensor.nonunit"] == expect > 0.5 * ph.n
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)) and int(nan.sum()) <= 1
+    sums, count = _pixel_sums(ph, (H, W))
+    gap = (got - want).double().cpu().abs()
+    keep = ~nan.cpu()
+    assert bool((gap <= count * 2.0 ** -23 * sums)[keep].all())
+
+
+@pytest.mark.cuda
+def test_bin_scatter_refuses_bad_inputs(cuda):
+    from imsim_tpu_torch.ops import binning
+
+    x = torch.zeros(10, device=cuda)
+    frame = torch.zeros((4, 5), device=cuda)
+    with pytest.raises(ValueError):
+        binning.bin_scatter(x.cpu(), x.cpu(), x.cpu(), frame.cpu())
+    with pytest.raises(ValueError):
+        binning.bin_scatter(x, x, x.double(), frame)
+    with pytest.raises(ValueError):
+        binning.bin_scatter(x, x, x[:5], frame)
+    with pytest.raises(ValueError):
+        binning.bin_scatter(x, x, x, frame.t())
+    with pytest.raises(ValueError):
+        binning.bin_scatter(x, x, x, frame,
+                            torch.zeros(3, device=cuda))
+    n0 = _build.LAUNCHES["bin_scatter"]
+    binning.bin_scatter(x[:0], x[:0], x[:0], frame)
+    assert _build.LAUNCHES["bin_scatter"] == n0
+    assert float(frame.abs().sum()) == 0.0
+
+
+def _pixel_sums(ph, shape):
+    """(sum of |flux|, photons) per pixel of the in-frame photons, in
+    float64 on the CPU."""
+    H, W = shape
+    x, y = torch.round(ph.x.cpu()), torch.round(ph.y.cpu())
+    inb = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    idx = (y[inb] * W + x[inb]).to(torch.int64)
+    f = ph.flux.cpu()[inb].double().abs()
+    s = torch.zeros(H * W, dtype=torch.float64).index_add_(0, idx, f)
+    c = torch.zeros(H * W, dtype=torch.float64).index_add_(
+        0, idx, torch.ones_like(f))
+    return s.view(H, W), c.view(H, W)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("whole", [True, False])
 @pytest.mark.parametrize("share", [0.0, 0.002, 0.09, 1.0])
 def test_binning_tail_matches_pixel0_on_the_card(cuda, share, whole):
-    """sensor/simple's tail binner against the pixel-0 reference of
-    tests/test_torch_binning.py on the card's sorted scatter, twice.  The
-    stable sort leaves every in-frame run as it was, so every pixel but
-    (0, 0) is bit-equal for any flux; (0, 0)'s photons leave the run of
-    off-frame zeros, which moves them between the warp's lanes, and its
-    sum is exact for whole fluxes (the pooled render's 0 or 1) alone."""
+    """sensor/simple's binner (K5 on the card) against the pixel-0
+    reference of tests/test_torch_binning.py (the sorted scatter), twice.
+    Whole fluxes (the pooled render's 0 or 1) sum to whole numbers below
+    2^24, exact in any order: bit-equal.  Other fluxes meet in the
+    atomics' order, so each pixel equals the reference's sum within
+    float32 rounding: the two orders differ by at most (photons - 1)
+    x 2^-24 x the sum of |flux| each, so by photons x 2^-23 x it."""
     from test_torch_binning import _photons, _pixel0
 
     from imsim_tpu_torch.sensor.simple import accumulate
 
-    ph = _photons(share, seed=51, whole=whole, bad=share > 0)
-    ph = ph.replace(**{f.name: getattr(ph, f.name).to(cuda)
-                       for f in dataclasses.fields(ph)
-                       if getattr(ph, f.name) is not None})
+    ph = _to(_photons(share, seed=51, whole=whole, bad=share > 0), cuda)
     shape = (48, 56)
     want = _pixel0(ph, torch.zeros(shape, device=cuda))
+    sums, count = _pixel_sums(ph, shape)
     for got in (accumulate(ph, torch.zeros(shape, device=cuda)),
                 accumulate(ph, torch.zeros_like(want))):
-        if not whole:
-            got[0, 0] = want[0, 0]
-        assert torch.equal(got, want)
+        if whole:
+            assert torch.equal(got, want)
+        else:
+            gap = (got - want).double().cpu().abs()
+            assert bool((gap <= count * 2.0 ** -23 * sums).all())

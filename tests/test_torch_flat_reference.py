@@ -170,3 +170,21 @@ def test_flat_spans_nest_and_count_the_photons(icdf, clean_store):
     photons = [c for c in trace.counters() if c["name"] == "flat.photons"]
     assert len(photons) == n_iter * n_sub
     assert sum(c["value"] for c in photons) == n_iter * n_sub * per
+
+
+def test_flat_photons_bin_whole_fluxes(icdf, clean_store):
+    """`sensor.nonunit` reads 0 on what the photon flat hands the binner
+    (ones, zeroed where the photon converts past the silicon): the
+    contract that makes the card's atomic binning exact."""
+    cfg = F.FlatConfig(counts_per_pixel=200.0, counts_per_iter=100.0,
+                       xsize=64, ysize=48)
+    sp = SiliconParams.make(treering_model=TreeRingModel(DET))
+    trace.enable()
+    F.build_flat_photons(3, cfg, icdf, sp, device="cpu")
+    trace.disable()
+    tot = {}
+    for c in trace.counters():
+        tot[c["name"]] = tot.get(c["name"], 0.0) + c["value"]
+    assert tot["sensor.binned"] == sum(
+        c["value"] for c in trace.counters() if c["name"] == "flat.photons")
+    assert tot["sensor.nonunit"] == 0

@@ -89,13 +89,19 @@ def test_port_imports_and_renders_without_jax():
                              if ln.startswith("REPORT")).split(" ", 1)[1])
     names = [row["name"] for row in report["kernels"]]
     assert names == ["scan_slot_prefix", "field_to_sensor", "stencil_pair",
-                     "scan_lanes", "probe_p1", "probe_p2", "probe_p3",
-                     "probe_p4", "probe_p5", "probe_mk", "probe_mk2"]
+                     "bin_scatter", "scan_lanes", "probe_p1", "probe_p2",
+                     "probe_p3", "probe_p4", "probe_p5", "probe_mk",
+                     "probe_mk2"]
     # the CPU rehearsal runs the plain twins: no launches, no gaps
     assert all(row["launches"] == 0 and row["max_abs_err"] == 0
                for row in report["kernels"][3:])
     # gate (ad): K1 repeats bit for bit (the plain twin here)
     assert "[K1] (ad) K1 repeats bit for bit: 5 of 5 calls" in res.stdout
+    # K5's row: the binner against its sorted twin at both shapes
+    for case in ("sky chunk", "flat sub-batch"):
+        assert any(ln.startswith(f"[K5 {case}] ") and "image bit-equal"
+                   in ln and "5 of 5 calls alike" in ln
+                   for ln in lines), case
     # the probe phase ran every probe_rows case
     assert sum(ln.startswith("[probes] ") and ln.endswith(" ms")
                for ln in lines) == 13

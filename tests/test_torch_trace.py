@@ -176,6 +176,28 @@ def test_sensor_spans_nest_under_render_sensor(catalog, tmp_path):
     assert all(s["ccd"] == DET for s in sp)
 
 
+def test_the_catalog_ccd_bins_whole_fluxes(catalog, tmp_path):
+    """`sensor.nonunit` reads 0 on what the catalog CCD's producers hand
+    the binner (the pooled render's weights, the ray chain's zeroing, the
+    silicon's depth loss, the template's optics and sensor): the
+    contract that makes the card's atomic binning exact."""
+    over = [o for o in _over(catalog, tmp_path)
+            if not o.startswith(("psf.type=", "image.sensor.type="))]
+    ctx = TR.build_visit_context(load_config(
+        {"template": "imsim-config-instcat"}, over))
+    prep = TR.prepare_ccd(ctx, DET, window=(128, 128), device="cpu",
+                          upload=False)
+    trace.enable()
+    TR.render_one_ccd(ctx, DET, "cpu", prep=prep)
+    trace.disable()
+    assert "sensor.bin" in {s["name"] for s in trace.spans()}
+    tot = {}
+    for c in trace.counters():
+        tot[c["name"]] = tot.get(c["name"], 0.0) + c["value"]
+    assert tot["sensor.binned"] > 0
+    assert tot["sensor.nonunit"] == 0
+
+
 def test_binner_counters_match_a_hand_count():
     H, W = 6, 8
     x = torch.tensor([0.0, 7.4, 7.6, -0.6, -0.4, 3.0, 3.0, 100.0,
@@ -194,7 +216,8 @@ def test_binner_counters_match_a_hand_count():
         assert c["ccd"] == "R01_S00"
         got[c["name"]] = got.get(c["name"], 0) + c["value"]
     assert got == {"sensor.binned": 2 * x.numel(),
-                   "sensor.off_frame": 2 * int((~inside).sum())}
+                   "sensor.off_frame": 2 * int((~inside).sum()),
+                   "sensor.nonunit": 0}
     assert float(img.sum()) == 2 * int(inside.sum())
 
 
@@ -284,8 +307,8 @@ def test_cli_writes_a_chrome_trace(traced_visit):
     assert {threads[e["tid"]] for e in x if e["name"] == "ccd"} == {
         threading.current_thread().name}
     counters = [e for e in ev if e["ph"] == "C"]
-    assert {e["name"] for e in counters} == {"sensor.binned",
-                                             "sensor.off_frame"}
+    assert {e["name"] for e in counters} == {
+        "sensor.binned", "sensor.off_frame", "sensor.nonunit"}
 
 
 def _store(monkeypatch, spans, counters=()):
