@@ -25,9 +25,10 @@ ok line is never printed):
      equal to the first; K5, the binning scatter, through
      sensor/simple.accumulate onto a charged 4004 x 4096 frame at the
      flat's sub-batch (16,769,309 photons) and the sky chunk (1,876,480,
-     9% off the frame), fluxes 0 and 1: bit-equal to the sorted scatter
-     of its twin, five calls alike, the same in-frame tally and
-     counters (one PyTorch call: the twin's index_put_);
+     9% off the frame), fluxes 0 and 1: bit-equal to its plain twin
+     ops/binning.bin_scatter_plain, five calls alike, the same in-frame
+     tally and counters (one PyTorch call: the twin's masked
+     index_put_);
   4. the whole bench CCD, cold and warm: render_ccd_pooled with the FFT
      branch (the 17 bright stars in one Fourier synthesis, with
      diffraction spikes at the full well), the sky and its noise, and the
@@ -418,12 +419,13 @@ def _k3_row(timer, gen, silicon, H, W, device, tag="K3"):
 
 
 def _k5_case(timer, gen, frame, n, share, star, device, tag):
-    """K5 (through sensor/simple.accumulate) against the sorted scatter
-    of its twin on n photons with fluxes of 0 and 1 over `frame`, the
-    first `share` of them off it, binned onto a charged base: the image
-    bit-equal, five calls alike, the in-frame tally and the counters
-    sensor.binned, .off_frame and .nonunit equal.  Returns (photons,
-    kernel ms, plain ms, index_put_ ms, bound)."""
+    """K5 (through sensor/simple.accumulate) against its plain twin,
+    ops/binning.bin_scatter_plain, on n photons with fluxes of 0 and 1
+    over `frame`, the first `share` of them off it, binned onto a charged
+    base: the image bit-equal, five calls alike, the in-frame tally and
+    the counters sensor.binned, .off_frame and .nonunit equal to the
+    twin's.  Returns (photons, kernel ms, plain ms, index_put_ ms,
+    bound)."""
     import torch
 
     from imsim_tpu_torch.benchmarks import accumulate_probe as AP
@@ -439,20 +441,23 @@ def _k5_case(timer, gen, frame, n, share, star, device, tag):
     ph = PhotonBatch.zeros(n, device=device).replace(x=x, y=y, flux=flux)
     base = torch.rand(frame, generator=gen, device=device) * 1e3
 
-    def binned(fn):
-        tally = {}
+    tally = {}
+    trace.reset()
+    trace.enable()
+    try:
+        got = simple.accumulate(ph, base.clone(), tally)
+        c_got = {c["name"]: c["value"] for c in trace.counters()}
+    finally:
+        trace.disable()
         trace.reset()
-        trace.enable()
-        try:
-            img = fn(ph, base.clone(), tally)
-            counts = {c["name"]: c["value"] for c in trace.counters()}
-        finally:
-            trace.disable()
-            trace.reset()
-        return img, float(tally["in_frame"]), counts
-
-    got, t_got, c_got = binned(simple.accumulate)
-    want, t_want, c_want = binned(simple.accumulate_plain)
+    t_got = float(tally["in_frame"])
+    stats = torch.zeros(3, dtype=torch.float64, device=device)
+    want = base + binning.bin_scatter_plain(
+        x, y, flux, torch.zeros(frame, device=device), stats)
+    s = stats.tolist()
+    t_want = s[0]
+    c_want = {"sensor.binned": float(n), "sensor.off_frame": s[1],
+              "sensor.nonunit": s[2]}
     same = torch.equal(got.view(torch.int32), want.view(torch.int32))
     repeats = sum(torch.equal(simple.accumulate(ph, base.clone()), got)
                   for _ in range(5))
@@ -467,17 +472,17 @@ def _k5_case(timer, gen, frame, n, share, star, device, tag):
            f"{tag}: K5's tally or counters off the twin's")
     del got, want
     scratch = torch.zeros(frame, device=device)
-    kernel = (lambda: binning.bin_scatter(x, y, flux, scratch)) \
-        if timer.cuda else (lambda: simple.accumulate(ph, scratch))
-    tail = simple.tail_slots(n, H * W)
-    idx, f, _ = simple.bin_indices(ph, H, W, tail)
-    buf = torch.zeros(H * W + tail, device=device)
+    fx, fy = torch.round(x), torch.round(y)
+    inb = (fx >= 0) & (fx < W) & (fy >= 0) & (fy < H)
+    idx = fy[inb].to(torch.int64) * W + fx[inb].to(torch.int64)
+    f = flux[inb]
     # bound: x, y and flux read once (12 B a photon); the adds land in
     # a frame near L2's size and are not counted
-    return (timer.ms(kernel, reps=5),
-            timer.ms(lambda: simple.accumulate_plain(ph, base.clone())),
-            timer.ms(lambda: buf.index_put_((idx,), f, accumulate=True),
+    return (timer.ms(lambda: binning.bin_scatter(x, y, flux, scratch),
                      reps=5),
+            timer.ms(lambda: binning.bin_scatter_plain(x, y, flux, scratch)),
+            timer.ms(lambda: scratch.view(-1).index_put_(
+                (idx,), f, accumulate=True), reps=5),
             bound(0, 12 * n))
 
 

@@ -2,12 +2,12 @@
 // that its rounded (x, y) falls in; photons outside the frame are
 // dropped.
 //
-// Replaces no TPU kernel: the JAX package bins with XLA's scatter-add,
-// which the port first ran as the sorted `index_put_(accumulate=True)`
-// of sensor/simple.accumulate_plain (a radix sort of int64 keys, then
-// one warp a run of equal indices).  On a flat nearly every pixel gets
-// one photon a sub-batch, so the sort buys nothing and the runs are one
-// photon long.
+// Replaces no TPU kernel: the JAX package bins with XLA's scatter-add.
+// Its plain twin, ops/binning.bin_scatter_plain, is one masked
+// `index_put_(accumulate=True)`, which on the card sorts its int64 keys
+// and then sums each run of equal indices in one warp.  On a flat
+// nearly every pixel gets one photon a sub-batch, so the sort buys
+// nothing and the runs are one photon long.
 //
 // Bound on the H100: memory.  A photon reads x, y and flux (12 B, plain
 // coalesced loads) and adds into a float32 frame of H * W pixels with a

@@ -4,8 +4,7 @@ plain PyTorch twins beside them:
   scanrows.scan_slot_prefix  K1  slot-layout ordinal prefix sum
   raychain.field_to_sensor   K2  fused DCR + diffraction + ray trace
   stencil.stencil_pair       K3  brighter-fatter 2-output stencil
-  binning.bin_scatter        K5  the binning scatter, atomic adds (its
-      twin, the sorted scatter, is sensor/simple.accumulate_plain)
+  binning.bin_scatter        K5  the binning scatter, atomic adds
   scanrows.scan_lanes        K4  (C, N) lane prefix sum
   probes.probe_copy2 ...     P1-P7  the stencil probes' kernels:
       probe_copy2 (P1), probe_window (P2), probe_window_tap (P3),
@@ -19,7 +18,6 @@ imsim_tpu_torch.benchmarks.probe_rows`, `...probe_pallas`,
 run the plain twins here).  chip_smoke.py drives both.
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes
-the plain twin for a CPU tensor (K5's caller, sensor/simple.accumulate,
-makes that choice).  `_build` compiles `csrc/*.cu` with
+the plain twin for a CPU tensor.  `_build` compiles `csrc/*.cu` with
 nvcc at first use and counts launches.
 """

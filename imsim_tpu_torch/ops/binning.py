@@ -1,7 +1,8 @@
-"""K5: the binning scatter on the card (csrc/binning.cu): each photon's
-flux added into the pixel its rounded (x, y) falls in, off-frame photons
-dropped.  It replaces no TPU kernel; its plain twin is the sorted
-scatter of sensor/simple.accumulate_plain, which the CPU runs."""
+"""K5: the binning scatter (csrc/binning.cu): each photon's flux added
+into the pixel its rounded (x, y) falls in, off-frame photons dropped.
+It replaces no TPU kernel (the JAX package bins with XLA's scatter-add).
+Its plain twin, `bin_scatter_plain`, is the same algorithm in one masked
+`index_put_(accumulate=True)` and runs on any device."""
 from __future__ import annotations
 
 import ctypes
@@ -11,16 +12,37 @@ import torch
 from . import _build
 
 
+def bin_scatter_plain(x: torch.Tensor, y: torch.Tensor, flux: torch.Tensor,
+                      frame: torch.Tensor,
+                      stats: torch.Tensor | None = None):
+    """`bin_scatter` in plain PyTorch: the in-frame photons' fluxes added
+    into the frame in place by one masked `index_put_`; `stats` as
+    there.  The mask is applied before the integer cast, so that a NaN,
+    infinite or huge coordinate never becomes an index."""
+    H, W = frame.shape
+    fx = torch.round(x)
+    fy = torch.round(y)
+    inb = (fx >= 0) & (fx < W) & (fy >= 0) & (fy < H)
+    idx = fy[inb].to(torch.int64) * W + fx[inb].to(torch.int64)
+    frame.view(-1).index_put_((idx,), flux[inb], accumulate=True)
+    if stats is not None:
+        stats += torch.stack((
+            torch.where(inb, flux, 0.0).sum(dtype=torch.float64),
+            (~inb).sum(dtype=torch.float64),
+            ((flux != 0) & (flux != 1)).sum(dtype=torch.float64)))
+    return frame
+
+
 def bin_scatter(x: torch.Tensor, y: torch.Tensor, flux: torch.Tensor,
                 frame: torch.Tensor, stats: torch.Tensor | None = None):
     """Add flux[i] into frame[round(y[i]), round(x[i])] for every photon
     inside the (H, W) float32 frame, in place (round half to even, as
-    torch.round).  With `stats`, a float64 tensor of 3 on the same card,
+    torch.round).  With `stats`, a float64 tensor of 3 beside the frame,
     adds to it the in-frame flux, the photons outside the frame and the
-    photons whose flux is neither 0 nor 1.  CUDA tensors only."""
+    photons whose flux is neither 0 nor 1.  A CUDA frame: the kernel;
+    any other: the plain twin."""
     if not frame.is_cuda:
-        raise ValueError("bin_scatter: the kernel runs on the card; "
-                         "sensor/simple.accumulate_plain bins elsewhere")
+        return bin_scatter_plain(x, y, flux, frame, stats)
     H, W = frame.shape
     n = x.shape[0]
     _build.require(frame, "frame")

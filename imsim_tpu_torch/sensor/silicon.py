@@ -24,7 +24,7 @@ import torch
 from ..photons.batch import PhotonBatch
 from ..utils import rng, trace
 from ..utils.lookup import UniformTable, clenshaw_const
-from .simple import accumulate
+from .simple import accumulate, binned
 
 # log10(l_abs/um) piecewise-linear fit to published Si data (Green 2008)
 _ABS_WAVE = np.array([250, 300, 350, 400, 450, 500, 550, 600, 650, 700,
@@ -360,7 +360,7 @@ def accumulate_silicon(photons: PhotonBatch, image: torch.Tensor,
                     ph, params, silicon_draws(gen, chunk),
                     treerings=not fold_tr)
         with trace.span("sensor.bin", device=dev):
-            chunk_img = accumulate(ph, torch.zeros_like(image), tally)
+            chunk_img = binned(ph, image.shape, dev, tally)
         with trace.span("sensor.redistribute", device=dev):
             if fold_tr:
                 dx = dx + tr_field[0]

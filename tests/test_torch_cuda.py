@@ -951,6 +951,20 @@ def _binned(fn, ph, image):
     return out, float(tally["in_frame"]), got
 
 
+def _twin(ph, base):
+    """base + the plain twin's frame on the base's device, with the
+    twin's in-frame flux and counters in `_binned`'s form."""
+    from imsim_tpu_torch.ops import binning
+
+    frame = torch.zeros_like(base)
+    stats = torch.zeros(3, dtype=torch.float64, device=base.device)
+    binning.bin_scatter_plain(ph.x, ph.y, ph.flux, frame, stats)
+    s = stats.tolist()
+    return base + frame, s[0], {"sensor.binned": float(ph.n),
+                                "sensor.off_frame": s[1],
+                                "sensor.nonunit": s[2]}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("charged", [False, True])
 @pytest.mark.parametrize("share,bad", [
@@ -958,12 +972,13 @@ def _binned(fn, ph, image):
     (0.002, True), (0.09, True), (1.0, True)])
 def test_bin_scatter_matches_the_sorted_twin(cuda, share, bad, charged):
     """K5 (sensor/simple.accumulate on the card) against its plain twin,
-    the sorted scatter, run on the card too, for fluxes of 0 and 1:
-    off-frame shares of 0 to 100%, NaN, infinite and huge coordinates,
-    an empty base and one charged with fractional values.  The frame is
-    equal bit for bit and repeats over five calls; the in-frame flux
-    and the three counters are equal."""
-    from test_torch_binning import H, W, _photons
+    ops/binning.bin_scatter_plain, run on the card too (`index_put_`
+    sorts there), for fluxes of 0 and 1: off-frame shares of 0 to 100%,
+    NaN, infinite and huge coordinates, an empty base and one charged
+    with fractional values.  The frame is equal bit for bit, to the
+    float64 reference's too, and repeats over five calls; the in-frame
+    flux and the three counters are equal."""
+    from test_torch_binning import H, W, _check_binned, _photons
 
     from imsim_tpu_torch.sensor import simple
 
@@ -971,7 +986,8 @@ def test_bin_scatter_matches_the_sorted_twin(cuda, share, bad, charged):
     g = torch.Generator().manual_seed(8)
     base = (1e3 * torch.rand((H, W), generator=g) if charged
             else torch.zeros((H, W))).to(cuda)
-    want, t_want, c_want = _binned(simple.accumulate_plain, ph, base.clone())
+    want, t_want, c_want = _twin(ph, base)
+    _check_binned(want, base, ph)
     n0 = _build.LAUNCHES["bin_scatter"]
     for _ in range(5):
         image = base.clone()
@@ -996,7 +1012,7 @@ def test_bin_scatter_on_unaligned_slices(cuda, offset):
     ph = _to(_photons(0.09, seed=71, whole=True), cuda)
     part = ph.slice(offset, ph.n - 7)
     assert part.x.data_ptr() % 16 != 0
-    want = simple.accumulate_plain(part, torch.zeros((H, W), device=cuda))
+    want = _twin(part, torch.zeros((H, W), device=cuda))[0]
     got = simple.accumulate(part, torch.zeros((H, W), device=cuda))
     assert torch.equal(got, want)
 
@@ -1018,7 +1034,7 @@ def test_bin_scatter_full_frame_flat_sub_batch(cuda):
     ph = PhotonBatch.zeros(n, device=cuda).replace(x=x, y=y, flux=flux)
     base = torch.floor(1500 + 50 * torch.randn(
         (H, W), generator=g, device=cuda)) + 0.25
-    want, t_want, c_want = _binned(simple.accumulate_plain, ph, base.clone())
+    want, t_want, c_want = _twin(ph, base)
     for _ in range(5):
         got, t_got, c_got = _binned(simple.accumulate, ph, base.clone())
         assert torch.equal(got, want)
@@ -1031,8 +1047,8 @@ def test_bin_scatter_full_frame_flat_sub_batch(cuda):
 def test_bin_scatter_counts_nonunit_fluxes(cuda):
     """Fluxes other than 0 and 1 are counted by K5 as by the twin (NaN
     too), and bin to the twin's sums within float32 rounding (the bound
-    of test_binning_tail_matches_pixel0_on_the_card)."""
-    from test_torch_binning import H, W, _photons
+    of test_binning_matches_the_float64_sums_on_the_card)."""
+    from test_torch_binning import H, W, _photons, _pixel_sums
 
     from imsim_tpu_torch.sensor import simple
 
@@ -1042,8 +1058,7 @@ def test_bin_scatter_counts_nonunit_fluxes(cuda):
     flux[::11] = 0.0
     flux[5] = float("nan")
     ph = ph.replace(flux=flux)
-    want, _, c_want = _binned(simple.accumulate_plain, ph,
-                              torch.zeros((H, W), device=cuda))
+    want, _, c_want = _twin(ph, torch.zeros((H, W), device=cuda))
     got, _, c_got = _binned(simple.accumulate, ph,
                             torch.zeros((H, W), device=cuda))
     assert c_got == c_want
@@ -1051,7 +1066,7 @@ def test_bin_scatter_counts_nonunit_fluxes(cuda):
     assert c_got["sensor.nonunit"] == expect > 0.5 * ph.n
     nan = torch.isnan(want)
     assert torch.equal(nan, torch.isnan(got)) and int(nan.sum()) <= 1
-    sums, count = _pixel_sums(ph, (H, W))
+    _, sums, count = _pixel_sums(ph, (H, W))
     gap = (got - want).double().cpu().abs()
     keep = ~nan.cpu()
     assert bool((gap <= count * 2.0 ** -23 * sums)[keep].all())
@@ -1059,12 +1074,23 @@ def test_bin_scatter_counts_nonunit_fluxes(cuda):
 
 @pytest.mark.cuda
 def test_bin_scatter_refuses_bad_inputs(cuda):
+    """A CPU frame bins as the twin does; on the card, inputs beside
+    another device, of another dtype or length, a strided frame and
+    float32 stats raise, and no photons launch nothing."""
     from imsim_tpu_torch.ops import binning
 
+    xc = torch.tensor([0.2, 3.6, -0.7, 4.4, float("nan")])
+    yc = torch.tensor([1.0, 2.5, 1.0, 3.4, 1.0])
+    fc = torch.tensor([1.0, 1.0, 1.0, 0.5, 1.0])
+    n0 = _build.LAUNCHES["bin_scatter"]
+    got = binning.bin_scatter(xc, yc, fc, torch.zeros((4, 5)))
+    want = binning.bin_scatter_plain(xc, yc, fc, torch.zeros((4, 5)))
+    assert torch.equal(got, want) and float(got.sum()) == 2.5
+    assert _build.LAUNCHES["bin_scatter"] == n0
     x = torch.zeros(10, device=cuda)
     frame = torch.zeros((4, 5), device=cuda)
     with pytest.raises(ValueError):
-        binning.bin_scatter(x.cpu(), x.cpu(), x.cpu(), frame.cpu())
+        binning.bin_scatter(x.cpu(), x.cpu(), x.cpu(), frame)
     with pytest.raises(ValueError):
         binning.bin_scatter(x, x, x.double(), frame)
     with pytest.raises(ValueError):
@@ -1074,49 +1100,29 @@ def test_bin_scatter_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError):
         binning.bin_scatter(x, x, x, frame,
                             torch.zeros(3, device=cuda))
-    n0 = _build.LAUNCHES["bin_scatter"]
     binning.bin_scatter(x[:0], x[:0], x[:0], frame)
     assert _build.LAUNCHES["bin_scatter"] == n0
     assert float(frame.abs().sum()) == 0.0
 
 
-def _pixel_sums(ph, shape):
-    """(sum of |flux|, photons) per pixel of the in-frame photons, in
-    float64 on the CPU."""
-    H, W = shape
-    x, y = torch.round(ph.x.cpu()), torch.round(ph.y.cpu())
-    inb = (x >= 0) & (x < W) & (y >= 0) & (y < H)
-    idx = (y[inb] * W + x[inb]).to(torch.int64)
-    f = ph.flux.cpu()[inb].double().abs()
-    s = torch.zeros(H * W, dtype=torch.float64).index_add_(0, idx, f)
-    c = torch.zeros(H * W, dtype=torch.float64).index_add_(
-        0, idx, torch.ones_like(f))
-    return s.view(H, W), c.view(H, W)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("whole", [True, False])
 @pytest.mark.parametrize("share", [0.0, 0.002, 0.09, 1.0])
-def test_binning_tail_matches_pixel0_on_the_card(cuda, share, whole):
-    """sensor/simple's binner (K5 on the card) against the pixel-0
-    reference of tests/test_torch_binning.py (the sorted scatter), twice.
-    Whole fluxes (the pooled render's 0 or 1) sum to whole numbers below
-    2^24, exact in any order: bit-equal.  Other fluxes meet in the
-    atomics' order, so each pixel equals the reference's sum within
-    float32 rounding: the two orders differ by at most (photons - 1)
-    x 2^-24 x the sum of |flux| each, so by photons x 2^-23 x it."""
-    from test_torch_binning import _photons, _pixel0
+def test_binning_matches_the_float64_sums_on_the_card(cuda, share, whole):
+    """sensor/simple's binner (K5 on the card) against the float64
+    reference of tests/test_torch_binning.py, onto a new frame and into
+    `binned`'s own: bit-equal for whole fluxes (the pooled render's 0 or
+    1 sum to whole numbers below 2^24, exact in any order); other fluxes
+    meet in the atomics' order, within float32 rounding of the
+    reference."""
+    from test_torch_binning import _check_binned, _photons
 
-    from imsim_tpu_torch.sensor.simple import accumulate
+    from imsim_tpu_torch.sensor import simple
 
     ph = _to(_photons(share, seed=51, whole=whole, bad=share > 0), cuda)
     shape = (48, 56)
-    want = _pixel0(ph, torch.zeros(shape, device=cuda))
-    sums, count = _pixel_sums(ph, shape)
-    for got in (accumulate(ph, torch.zeros(shape, device=cuda)),
-                accumulate(ph, torch.zeros_like(want))):
-        if whole:
-            assert torch.equal(got, want)
-        else:
-            gap = (got - want).double().cpu().abs()
-            assert bool((gap <= count * 2.0 ** -23 * sums).all())
+    zero = torch.zeros(shape, device=cuda)
+    for got in (simple.accumulate(ph, zero.clone()),
+                simple.binned(ph, shape, cuda)):
+        assert got.is_cuda
+        _check_binned(got, zero, ph)
